@@ -1,11 +1,11 @@
 """Collective-volume accounting for the sharded streaming paths
-(VERDICT r3 #7; SURVEY.md §2.3 TP row, §5 comm backend).
+(SURVEY.md §2.3 TP row, §5 comm backend).
 
 Design claim to quantify: the rows-sharded streaming pipeline's
 collectives carry only p-CLASS payloads (p-vectors, (p, m) factors,
 (p, p) grams — never anything N-sized), so communication volume is
 INDEPENDENT of image size while per-device work scales as N/R. That is
-why rows-sharding should multiply the single-chip rate on a real slice.
+why rows-sharding should multiply the single-device rate on a real mesh.
 
 Method: lower + compile `build_streaming_sharded` (and the batched
 builder) on a virtual 8-device CPU mesh, parse the optimized post-GSPMD
@@ -16,9 +16,9 @@ collective-permute), sum payload bytes, and emit:
     loop bodies counted once — a conservative static view; the dynamic
     volume multiplies loop collectives by trip count);
   * total collective bytes vs per-device FLOPs (from the roofline cost
-    model) => bytes/FLOP, and the predicted v4-8 scaling efficiency
-    eta = T_compute(N/R) / (T_compute(N/R) + T_comm) using v4 ICI
-    bandwidth (~50 GB/s/link usable, 3D torus);
+    model) => bytes/FLOP, and the predicted scaling efficiency
+    eta = T_compute(N/R) / (T_compute(N/R) + T_comm) over NVLink-class
+    bandwidth (100 GB/s usable per device assumed);
   * the max single collective payload — asserted p-class (no dimension
     beyond ~2 p_pad), the invariant tests/test_collectives.py pins.
 
@@ -131,10 +131,10 @@ def collective_stats(hlo_text: str) -> dict:
 
 def sharded_hlo(side=512, n_dev=8, batch=False):
     """Optimized HLO of the rows-sharded streaming step on a virtual mesh."""
-    import graphlap_tpu as gl
-    from graphlap_tpu.models.pipeline import make_plan
-    from graphlap_tpu.parallel.mesh import make_mesh
-    from graphlap_tpu.parallel.streaming_sharded import (
+    import graphlap as gl
+    from graphlap.models.pipeline import make_plan
+    from graphlap.parallel.mesh import make_mesh
+    from graphlap.parallel.streaming_sharded import (
         build_streaming_sharded, build_streaming_sharded_batch)
 
     cfg = gl.PipelineConfig(
@@ -159,8 +159,8 @@ def sharded_hlo(side=512, n_dev=8, batch=False):
 
 
 def main():
-    import graphlap_tpu as gl  # noqa: F401  (forces matmul precision pin)
-    from graphlap_tpu.utils.roofline import streaming_stage_costs
+    import graphlap as gl  # noqa: F401  (forces matmul precision pin)
+    from graphlap.utils.roofline import streaming_stage_costs
 
     n_dev = 8
     rows = []
@@ -180,11 +180,12 @@ def main():
         dyn_bytes = (stats["total_bytes"] - stats["loop_body_bytes"]
                      + stats["loop_body_bytes"] * dyn_mult)
 
-        # v4 ICI: ~50 GB/s usable per direction per link for the psum ring
-        ici_gbs = 50e9
-        # v4-8 compute: assume the measured v5e bf16 rate class (~100-200
-        # TFLOP/s effective) — the prediction is a RATIO so the exact
-        # constant matters little; exp-bound passes scale the same way
+        # NVLink: 450 GB/s each way per H100 (NVIDIA data sheet); the
+        # ring all-reduce sees a fraction, so assume 100 GB/s usable
+        ici_gbs = 100e9
+        # compute: assume a ~100 TFLOP/s effective rate class — the
+        # prediction is a RATIO so the exact constant matters little;
+        # exp-bound passes scale the same way
         t_comm = dyn_bytes / ici_gbs
         t_comp = flops_dev / 100e12
         eta = t_comp / (t_comp + t_comm)
@@ -224,8 +225,8 @@ def main():
                 stats["loop_body_max_dim"] <= 2 * plan.p + 256,
             "per_device_mxu_flops": flops_dev,
             "comm_bytes_per_device_flop": dyn_bytes / max(flops_dev, 1),
-            "v4_8_predicted_scaling_eta": round(eta, 4),
-            "v4_8_predicted_eta_at_8mp": round(eta8, 4) if eta8 else None,
+            "predicted_scaling_eta": round(eta, 4),
+            "predicted_eta_at_8mp": round(eta8, 4) if eta8 else None,
             "ts": __import__("time").time(),
         }
         rows.append(row)

@@ -26,7 +26,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from graphlap_tpu.utils.cache import setup_compilation_cache
+from graphlap.utils.cache import setup_compilation_cache
 
 setup_compilation_cache(Path(__file__).parent.parent, cpu=True)
 
@@ -43,7 +43,7 @@ SIGMA = 0.1
 def moving_scene(side: int, b: int, v: float, seed: int):
     """(clean, noisy) stacks of a scene translating v px/frame along the
     diagonal (sub-pixel via spline interpolation, wrap-free reflect)."""
-    import graphlap_tpu as gl
+    import graphlap as gl
 
     base = gl.make_test_image(side + 2 * int(np.ceil(v * b)) + 8,
                               side + 2 * int(np.ceil(v * b)) + 8)
@@ -63,8 +63,8 @@ def main():
     side = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     b = int(sys.argv[2]) if len(sys.argv) > 2 else 8
 
-    import graphlap_tpu as gl
-    from graphlap_tpu.models.video import filter_video
+    import graphlap as gl
+    from graphlap.models.video import filter_video
 
     cfg = gl.PipelineConfig(kernel="gaussian", h=0.2, spatial_h=8.0,
                             sample_rho=0.03, num_eigvecs=24,

@@ -27,10 +27,10 @@ RESULTS = Path(__file__).parent / "results" / "spectrum_probe.jsonl"
 
 
 def main():
-    import graphlap_tpu as gl
-    from graphlap_tpu.ops.nystrom import nystrom_eigh_chol_np
-    from graphlap_tpu.ops.sinkhorn import normalize_blocks_np
-    from graphlap_tpu.utils.sampling import uniform_grid_sample
+    import graphlap as gl
+    from graphlap.ops.nystrom import nystrom_eigh_chol_np
+    from graphlap.ops.sinkhorn import normalize_blocks_np
+    from graphlap.utils.sampling import uniform_grid_sample
     from tests.oracle import oracle_affinity
 
     m = 50

@@ -17,16 +17,16 @@ import sys
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-from graphlap_tpu.utils.cache import setup_compilation_cache
+from graphlap.utils.cache import setup_compilation_cache
 setup_compilation_cache("/root/repo", cpu=True)  # CPU run: cache off (utils/cache.py)
 
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-import graphlap_tpu as gl  # noqa: E402
-from graphlap_tpu.config import PipelineConfig, denoise_tuned  # noqa: E402
-from graphlap_tpu.metrics import ssim  # noqa: E402
+import graphlap as gl  # noqa: E402
+from graphlap.config import PipelineConfig, denoise_tuned  # noqa: E402
+from graphlap.metrics import ssim  # noqa: E402
 
 OUT = pathlib.Path(__file__).resolve().parent.parent / "docs" / "examples"
 

@@ -1,13 +1,19 @@
 """Multi-host launch wrapper (BASELINE config 5; SURVEY.md §2.2 #11).
 
-TPU-native replacement for the reference's mpiexec/SLURM cluster scripts:
-instead of ``mpiexec -n P ./main``, every host runs this script with its
-coordinator address; ``jax.distributed.initialize`` wires the hosts into one
-JAX process group over DCN, and the (data, rows) mesh spans all chips.
+The replacement for the reference's mpiexec/SLURM cluster scripts:
+instead of ``mpiexec -n P ./main``, every process runs this script with the
+coordinator address, the process count and its own id;
+``jax.distributed.initialize`` wires the processes into one JAX process
+group, and the (data, rows) mesh spans all their devices.
 
-    # on every host of the slice (TPU pods auto-detect all three args):
+    # on every process (one per host, or one per GPU of a host):
     python scripts/multihost_launch.py --frames frames.npy --out out.npy \
-        [--coordinator host0:1234 --num_processes 4 --process_id $ID]
+        --coordinator host0:1234 --num_processes 4 --process_id $ID \
+        [--local_device_ids $LOCAL_RANK]
+
+Several processes on ONE host must each own their own card: pass
+``--local_device_ids`` (a JAX process reserves most of a card's memory
+when it first touches it, so two processes on one card starve each other).
 
 ``--frames`` holds the GLOBAL batch; each process slices out and feeds its
 own contiguous frame shard, and the shards are stitched into one global
@@ -70,10 +76,14 @@ def main(argv=None):
                                      "processes (config 4: one big image "
                                      "across the slice)")
     ap.add_argument("--out", required=True)
-    ap.add_argument("--coordinator", default=None,
-                    help="host:port of process 0 (auto-detected on TPU pods)")
-    ap.add_argument("--num_processes", type=int, default=None)
-    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--coordinator", required=True,
+                    help="host:port of process 0")
+    ap.add_argument("--num_processes", type=int, required=True)
+    ap.add_argument("--process_id", type=int, required=True)
+    ap.add_argument("--local_device_ids", default=None,
+                    help="comma-separated local device ids this process "
+                         "owns (several processes on one host: one card "
+                         "each); default: every visible device")
     ap.add_argument("--kernel", default="nlm")
     ap.add_argument("--sample", type=float, default=0.01)
     ap.add_argument("--eigvals", type=int, default=50)
@@ -86,7 +96,8 @@ def main(argv=None):
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("float32", "bfloat16", "bfloat16_store"))
     ap.add_argument("--use_pallas", action="store_true",
-                    help="fused Pallas strip kernels (auto-interpret on CPU)")
+                    help="fused Pallas matvec kernels (interpret mode on "
+                         "the CPU)")
     ap.add_argument("--solver", default="lobpcg",
                     choices=("lobpcg", "chol", "oneshot", "sketch"))
     ap.add_argument("--sinkhorn_coarse", type=int, default=1)
@@ -137,17 +148,17 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
         # cross-process CPU collectives need an explicit implementation
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    if args.coordinator:
-        jax.distributed.initialize(
-            coordinator_address=args.coordinator,
-            num_processes=args.num_processes,
-            process_id=args.process_id)
-    else:
-        jax.distributed.initialize()    # TPU pod auto-detection
+    local_ids = (None if args.local_device_ids is None else
+                 [int(i) for i in args.local_device_ids.split(",")])
+    jax.distributed.initialize(
+        coordinator_address=args.coordinator,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
+        local_device_ids=local_ids)
 
-    import graphlap_tpu as gl
-    from graphlap_tpu.models.video import filter_video_multihost
-    from graphlap_tpu.parallel.mesh import make_mesh
+    import graphlap as gl
+    from graphlap.models.video import filter_video_multihost
+    from graphlap.parallel.mesh import make_mesh
 
     if args.image:
         # config-4 mode: ONE image, rows sharded across every device of
@@ -166,7 +177,7 @@ def main(argv=None):
                                 filter_param=args.filter_param,
                                 filter_mode=args.filter_mode,
                                 cheb_degree=args.cheb_degree)
-        from graphlap_tpu.parallel.streaming_sharded import (
+        from graphlap.parallel.streaming_sharded import (
             filter_image_multihost)
         image = np.load(args.image)
         if args.preset:

@@ -4,13 +4,10 @@ The reference repo ships thesis plots generated by small Python helpers
 (SURVEY.md §1.1); this is that component here — regenerate with
 `python scripts/plot_results.py` after refreshing the results files.
 
-Three figures:
-  cfg2_ladder.png    — the measured single-chip optimization ladder at the
-                       512² config-2 shape (device wall per recipe step)
+Two figures:
   quality_gain.png   — denoising quality before/after the round-3
                        bandwidth calibration (PSNR vs the clean image)
-  cfg4_frontier.png  — 8 MP recipe frontier: device wall vs parity delta,
-                       with the 0.1 dB gate
+  motion_guide.png   — temporal basis reuse vs motion (motion_guide.jsonl)
 
 Colors/typography follow a validated palette (fixed categorical order,
 single-hue magnitude, neutral grid); values are labeled directly where a
@@ -19,7 +16,6 @@ reader would otherwise have to interpolate.
 
 import json
 import pathlib
-import re
 import sys
 
 import matplotlib
@@ -52,35 +48,6 @@ def _style(ax, title):
     ax.set_axisbelow(True)
 
 
-def cfg2_ladder():
-    # the measured history from BASELINE.md (each step PSNR-equal output)
-    steps = [
-        ("oneshot eigensolver, f32", 8.79),
-        ("Cholesky-ridge solver", 2.91),
-        ("LOBPCG top-m", 0.92),
-        ("bf16 gram GEMM", 0.51),
-        ("bfloat16_store strip", 0.31),
-        ("Sinkhorn 8 iters", 0.293),
-        ("randomized-sketch eigensolve", 0.194),
-        ("dense coarse Sinkhorn + polish", 0.149),
-        ("power-0 sketch", 0.145),
-    ]
-    fig, ax = plt.subplots(figsize=(7.2, 3.6), dpi=160)
-    names = [s[0] for s in steps][::-1]
-    vals = [s[1] for s in steps][::-1]
-    bars = ax.barh(names, vals, height=0.62, color=S1, zorder=3)
-    ax.set_xscale("log")
-    ax.set_xlim(0.1, 12)
-    ax.set_xlabel("device wall, seconds (log scale)", color=TEXT2, fontsize=9)
-    for b, v in zip(bars, vals):
-        ax.text(v * 1.1, b.get_y() + b.get_height() / 2, f"{v:g}s",
-                va="center", color=TEXT2, fontsize=8)
-    _style(ax, "config 2 (512² NLM): the 61× single-chip ladder (parity-gated)")
-    fig.tight_layout()
-    fig.savefig(OUT / "cfg2_ladder.png", facecolor=SURFACE)
-    plt.close(fig)
-
-
 def quality_gain():
     rows = [  # (config, noisy input, round-2 defaults, round-3 tuned)
         ("cfg1 128² bilateral", 20.25, 20.34, 25.36),
@@ -108,44 +75,6 @@ def quality_gain():
     _style(ax, "Denoising quality: measured bandwidth calibration")
     fig.tight_layout()
     fig.savefig(OUT / "quality_gain.png", facecolor=SURFACE)
-    plt.close(fig)
-
-
-def cfg4_frontier():
-    recs = [json.loads(l) for l in
-            (RESULTS / "cfg4_sweep.jsonl").open()]
-    pts = {}
-    for r in recs:
-        d = r.get("dpsnr_vs_clean_db")
-        if d is None or "device_wall_s" not in r:
-            continue
-        # keep the worst (max) parity across seeds per recipe, median wall
-        k = re.sub(r"_s\d+$", "", r["recipe"])
-        pts.setdefault(k, []).append((r["device_wall_s"], d))
-    fig, ax = plt.subplots(figsize=(7.2, 4.0), dpi=160)
-    for k, vs in pts.items():
-        wall = sorted(w for w, _ in vs)[len(vs) // 2]
-        worst = max(d for _, d in vs)
-        ok = worst <= 0.1
-        ax.scatter([wall], [worst], s=34, color=S1 if ok else S2, zorder=3)
-    ax.axhline(0.1, color=TEXT2, linewidth=1, linestyle=(0, (4, 3)))
-    ax.text(1.7, 0.108, "0.1 dB parity gate", color=TEXT2, fontsize=8,
-            ha="left", va="bottom")
-    # direct-label the two headline points
-    heads = {"jit_p1_gc64": ("compliant turbo 0.475 s", (0.52, 0.045)),
-             "jit_turbo_gc64": ("max turbo 0.311 s (documented)",
-                                (0.36, 0.335))}
-    for k, (lab, (x, y)) in heads.items():
-        ax.text(x, y, lab, color=TEXT, fontsize=8, va="center")
-    ax.set_xscale("log")
-    ax.set_xlabel("device wall at 8 MP, seconds (log scale)",
-                  color=TEXT2, fontsize=9)
-    ax.set_ylabel("worst seed parity, dB", color=TEXT2, fontsize=9)
-    ax.grid(True, axis="y", color=GRID, linewidth=0.6)
-    _style(ax, "config 4 (8 MP) recipe frontier: every swept recipe, "
-               "worst-seed parity vs device wall")
-    fig.tight_layout()
-    fig.savefig(OUT / "cfg4_frontier.png", facecolor=SURFACE)
     plt.close(fig)
 
 
@@ -192,9 +121,7 @@ def motion_guide():
 
 if __name__ == "__main__":
     OUT.mkdir(parents=True, exist_ok=True)
-    cfg2_ladder()
     quality_gain()
-    cfg4_frontier()
     motion_guide()
     print("wrote", *(p.name for p in sorted(OUT.glob("*.png"))),
           file=sys.stderr)

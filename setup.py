@@ -1,8 +1,8 @@
-"""Builds the optional native extension (graphlap_tpu/native/codec.c).
+"""Builds the optional native extension (graphlap/native/codec.c).
 
 Kept alongside pyproject.toml because ext_modules still need setup.py; the
 extension is optional — import falls back to numpy paths if the build or
-load fails (graphlap_tpu/native/__init__.py).
+load fails (graphlap/native/__init__.py).
 """
 
 from setuptools import Extension, setup
@@ -28,8 +28,8 @@ class OptionalBuildExt(build_ext):
 setup(
     ext_modules=[
         Extension(
-            "graphlap_tpu.native._native",
-            sources=["graphlap_tpu/native/codec.c"],
+            "graphlap.native._native",
+            sources=["graphlap/native/codec.c"],
             extra_compile_args=["-O3", "-std=c11"],
         ),
     ],

@@ -11,15 +11,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.utils.sampling import SamplePlan, uniform_grid_sample
-from graphlap_tpu.ops.affinity import extract_features_np, affinity_strip_np
-from graphlap_tpu.ops.sinkhorn import (_make_kaa_solve_np,
-                                       normalize_blocks_np,
-                                       nystrom_matvec_np)
-from graphlap_tpu.ops.nystrom import nystrom_eigh_chol_np, nystrom_eigh_np
-from graphlap_tpu.ops.filters import (apply_operator_filter,
-                                      apply_spectral_filter_np)
+from graphlap.config import PipelineConfig
+from graphlap.utils.sampling import SamplePlan, uniform_grid_sample
+from graphlap.ops.affinity import extract_features_np, affinity_strip_np
+from graphlap.ops.sinkhorn import (_make_kaa_solve_np,
+                                   normalize_blocks_np,
+                                   nystrom_matvec_np)
+from graphlap.ops.nystrom import nystrom_eigh_chol_np, nystrom_eigh_np
+from graphlap.ops.filters import (apply_operator_filter,
+                                  apply_spectral_filter_np)
 
 
 def oracle_affinity(img2d: np.ndarray, plan: SamplePlan, cfg: PipelineConfig):

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.io import make_test_image
-from graphlap_tpu.ops.affinity import (
+from graphlap.config import PipelineConfig
+from graphlap.io import make_test_image
+from graphlap.ops.affinity import (
     affinity_blocks,
     affinity_strip,
     affinity_strip_np,
@@ -15,7 +15,7 @@ from graphlap_tpu.ops.affinity import (
     extract_features_np,
     feature_dim,
 )
-from graphlap_tpu.utils.sampling import uniform_grid_sample
+from graphlap.utils.sampling import uniform_grid_sample
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +100,7 @@ def test_feature_dtype_bf16_streaming_parity():
     full streaming pipeline stays within the 0.1 dB gate of the exact
     f32 run, and adds ~nothing on top of the bf16 tile mode it is meant
     to pair with (measured 0.0045/0.0099 dB at 256^2/96^2 build-time)."""
-    import graphlap_tpu as gl
+    import graphlap as gl
     side = 64
     clean = make_test_image(side, side)
     noisy = np.clip(gl.add_gaussian_noise(clean, 0.1, seed=1), 0, 1)
@@ -132,7 +132,7 @@ def test_extract_features_padded_bit_identical(cfg, row_chunk):
     bandwidth division to a reciprocal multiply (1 ulp), so an eager
     reference would differ for a reason that never occurs in practice."""
     import jax
-    from graphlap_tpu.ops.affinity import extract_features_padded
+    from graphlap.ops.affinity import extract_features_padded
     img = jnp.asarray(make_test_image(37, 29, seed=5), jnp.float32)
     n = 37 * 29
     n_pad = 1152                      # non-trivial zero tail
@@ -150,7 +150,7 @@ def test_extract_features_padded_traced_h():
     """h stays traceable through the chunked path (tune.py SURE grids
     jit one executable over a traced bandwidth)."""
     import jax
-    from graphlap_tpu.ops.affinity import extract_features_padded
+    from graphlap.ops.affinity import extract_features_padded
     cfg = PipelineConfig(kernel="nlm", h=0.25, patch_size=3)
     img = jnp.asarray(make_test_image(16, 16, seed=2), jnp.float32)
     f = jax.jit(lambda hh: extract_features_padded(img, cfg, 272, h=hh,

@@ -9,10 +9,10 @@ materialized completion operator (small N, float64 eigendecomposition).
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.ops.filters import (FILTER_REGISTRY, apply_chebyshev_filter,
-                                      chebyshev_coeffs)
+from graphlap import add_gaussian_noise, filter_image, make_test_image
+from graphlap.config import PipelineConfig
+from graphlap.ops.filters import (FILTER_REGISTRY, apply_chebyshev_filter,
+                                  chebyshev_coeffs)
 
 from .oracle import oracle_filter_image
 
@@ -46,18 +46,18 @@ def test_chebyshev_matches_exact_dense_operator():
     """Materialize the completion operator column-by-column via the same
     wapply the pipeline uses (float64 oracle machinery), eigendecompose it
     fully, and compare f(M) y exact vs the Chebyshev recurrence."""
-    from graphlap_tpu.ops.affinity import extract_features_np
-    from graphlap_tpu.ops.sinkhorn import (_make_kaa_solve_np,
-                                           normalize_blocks_np,
-                                           nystrom_matvec_np)
-    from graphlap_tpu.utils.sampling import uniform_grid_sample
+    from graphlap.ops.affinity import extract_features_np
+    from graphlap.ops.sinkhorn import (_make_kaa_solve_np,
+                                       normalize_blocks_np,
+                                       nystrom_matvec_np)
+    from graphlap.utils.sampling import uniform_grid_sample
 
     side = 24
     img = make_test_image(side, side).astype(np.float64)
     cfg = _cfg()
     plan = uniform_grid_sample(side, side, cfg.num_samples(side * side))
     feats = extract_features_np(img, cfg)[plan.perm]
-    from graphlap_tpu.ops.affinity import affinity_strip_np
+    from graphlap.ops.affinity import affinity_strip_np
     strip = affinity_strip_np(feats[: plan.p], feats)
     kaa, kab = strip[:, : plan.p], strip[:, plan.p:]
     waa, wab, s_a, s_b = normalize_blocks_np(kaa, kab, "sinkhorn", 20,
@@ -131,7 +131,7 @@ def test_auto_degree_resolves_polynomials_exactly():
     """cheb_degree=0 picks the TRUE degree for exact polynomials: the
     64-node quadrature is exact there, so coefficients past the true
     degree are ~1e-16 and the tail bound collapses immediately."""
-    from graphlap_tpu.ops.filters import chebyshev_auto_degree
+    from graphlap.ops.filters import chebyshev_auto_degree
     assert chebyshev_auto_degree("sharpen", 0.6) == 1
     assert chebyshev_auto_degree("identity", 0.0) == 1
     assert chebyshev_auto_degree("power", 3.0) == 3
@@ -141,8 +141,8 @@ def test_auto_degree_resolves_polynomials_exactly():
 def test_auto_degree_bound_holds_on_smooth_filters():
     """The tail bound the auto pick certifies is a real sup-norm bound:
     check |f - S_K|_inf on a dense grid at the resolved degree."""
-    from graphlap_tpu.ops.filters import (chebyshev_auto_degree,
-                                          chebyshev_tail_bound)
+    from graphlap.ops.filters import (chebyshev_auto_degree,
+                                      chebyshev_tail_bound)
     x = np.linspace(-1, 1, 2001)
     for name, param in (("exp_decay", 2.0), ("exp_decay", 4.0),
                         ("sharpen", 1.5)):
@@ -159,14 +159,14 @@ def test_auto_degree_bound_holds_on_smooth_filters():
 def test_auto_degree_clamps_on_nonsmooth_filters():
     # fractional power has a |lambda|^p kink at 0: algebraic convergence,
     # the 1e-6 tail is unreachable by 64 — auto clamps rather than loops
-    from graphlap_tpu.ops.filters import chebyshev_auto_degree
+    from graphlap.ops.filters import chebyshev_auto_degree
     assert chebyshev_auto_degree("power", 2.5) == 64
 
 
 def test_pipeline_auto_degree_matches_explicit():
     """cheb_degree=0 through the full pipeline == the explicitly resolved
     degree, bit-for-bit (same static unroll)."""
-    from graphlap_tpu.ops.filters import chebyshev_auto_degree
+    from graphlap.ops.filters import chebyshev_auto_degree
     img = make_test_image(48, 48)
     noisy = np.clip(add_gaussian_noise(img, 0.05, seed=5), 0, 1)
     k = chebyshev_auto_degree("exp_decay", 2.0)

@@ -1,4 +1,4 @@
-"""Cholesky/ridge eigensolver (the TPU-fast default) — exactness and parity.
+"""Cholesky/ridge eigensolver (the fast default) — exactness and parity.
 
 The key property over the classical one-shot: V is EXACTLY orthonormal by
 construction and the whole path is backward-stable (no eigenbasis-rotation
@@ -9,9 +9,9 @@ filters (measured 100+ dB; the one-shot managed 60-99 dB).
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image, psnr
-from graphlap_tpu.config import CONFIG2, PipelineConfig
-from graphlap_tpu.ops.nystrom import nystrom_eigh_chol_np, nystrom_eigh_np
+from graphlap import add_gaussian_noise, filter_image, make_test_image, psnr
+from graphlap.config import CONFIG2, PipelineConfig
+from graphlap.ops.nystrom import nystrom_eigh_chol_np, nystrom_eigh_np
 
 from .oracle import oracle_filter_image
 
@@ -26,9 +26,9 @@ def img96():
 
 
 def _blocks():
-    from graphlap_tpu.ops.affinity import affinity_strip_np, extract_features_np
-    from graphlap_tpu.ops.sinkhorn import normalize_blocks_np
-    from graphlap_tpu.utils.sampling import uniform_grid_sample
+    from graphlap.ops.affinity import affinity_strip_np, extract_features_np
+    from graphlap.ops.sinkhorn import normalize_blocks_np
+    from graphlap.utils.sampling import uniform_grid_sample
     img = make_test_image(32, 32, seed=5)
     cfg = PipelineConfig(kernel="nlm", h=0.25)
     plan = uniform_grid_sample(32, 32, 48)
@@ -87,7 +87,7 @@ def test_chol_projection_filters_tight(img96, name, param):
 def test_lobpcg_iterative_branch_matches_chol():
     """Exercise the ACTUAL LOBPCG iteration (p > 5m), not the dense-eigh
     fallback every small config hits — the production default at
-    p ~ 5k / m = 50 runs this branch (ADVICE round 1: it had zero coverage).
+    p ~ 5k / m = 50 runs this branch (it had zero coverage).
     64x64 @ rho=0.5 -> p = 2048 >> 5*8."""
     img = make_test_image(64, 64, seed=7)
     noisy = np.clip(add_gaussian_noise(img, 0.1, seed=7), 0, 1)

@@ -5,12 +5,12 @@ import json
 import numpy as np
 import pytest
 
-from graphlap_tpu import make_test_image, psnr, save_image
-from graphlap_tpu.cli import main as cli_main
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.models.pipeline import compute_basis, filter_image, make_plan
-from graphlap_tpu.utils.checkpoint import filter_with_basis, load_basis, save_basis
-from graphlap_tpu.utils.timing import StageTimer, log_run
+from graphlap import make_test_image, psnr, save_image
+from graphlap.cli import main as cli_main
+from graphlap.config import PipelineConfig
+from graphlap.models.pipeline import compute_basis, filter_image, make_plan
+from graphlap.utils.checkpoint import filter_with_basis, load_basis, save_basis
+from graphlap.utils.timing import StageTimer, log_run
 
 
 @pytest.fixture(scope="module")
@@ -35,7 +35,7 @@ def test_cli_denoise_run(img_file, tmp_path, capsys):
     rec = json.loads(open(log).read().strip().splitlines()[-1])
     assert rec["p"] > 0 and rec["mp_per_s"] > 0
     assert "psnr_filtered_db" in rec
-    from graphlap_tpu.io import load_image
+    from graphlap.io import load_image
     result = load_image(out, grayscale=True)
     assert result.shape == (64, 64)
 
@@ -81,7 +81,7 @@ def test_cli_save_then_load_basis(img_file, tmp_path, capsys):
     out2 = str(tmp_path / "replayed.png")
     assert cli_main(common + ["-o", out2, "-load_basis", bpath]) == 0
     assert "replayed filter=identity" in capsys.readouterr().out
-    from graphlap_tpu.io import load_image
+    from graphlap.io import load_image
     a = load_image(out1, grayscale=True)
     b = load_image(out2, grayscale=True)
     assert a.shape == b.shape == (64, 64)

@@ -1,6 +1,5 @@
 """Coarse (decimated) gram mode — streaming-only accelerator for the
-O(Np^2) one-shot cross, the profiled single-chip cost king at 8 MP
-(benchmarks/results/profile.jsonl: 2.18 s of cfg4's 3.24 s device time).
+O(Np^2) one-shot cross, the full-resolution cost king at 8 MP.
 
 Same Monte-Carlo structure as coarse Sinkhorn: the cross is an N-term sum
 of outer products of spatially near-duplicate kernel columns, so uniform
@@ -12,8 +11,8 @@ norms / V^T y exact; only the p x p spectrum is estimated.
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image, psnr
-from graphlap_tpu.config import PipelineConfig
+from graphlap import add_gaussian_noise, filter_image, make_test_image, psnr
+from graphlap.config import PipelineConfig
 
 
 @pytest.fixture(scope="module")
@@ -61,9 +60,9 @@ def test_coarse_gram_stacks_with_coarse_sinkhorn(img96):
 
 
 def test_coarse_gram_sharded_batch_matches_single():
-    from graphlap_tpu.models.pipeline import make_plan
-    from graphlap_tpu.models.video import filter_video
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap.models.pipeline import make_plan
+    from graphlap.models.video import filter_video
+    from graphlap.parallel.mesh import make_mesh
 
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
                          num_eigvecs=16, sinkhorn_iters=8, streaming=True,
@@ -93,7 +92,7 @@ def test_coarse_gram_validation():
 def test_gram_sample_idx_regimes():
     """Sampler contract: strided below the k=16 jitter crossover, jittered
     at/above it; one in-slot index per k columns; deterministic."""
-    from graphlap_tpu.models.streaming import GRAM_JITTER_MIN, gram_sample_idx
+    from graphlap.models.streaming import GRAM_JITTER_MIN, gram_sample_idx
 
     n_pad = 4096
     idx8 = gram_sample_idx(n_pad, 8)
@@ -114,8 +113,8 @@ def test_sinkhorn_sample_idx_diagonal():
     k-coprime step per image row so every column phase is covered within k
     rows — the natural-order raster anti-alias (a plain ::k stride sampled
     only the vertical stripes x = 0 mod k and measured up to 0.094 dB of
-    fixed-point bias at cfg2; cfg2_sweep.jsonl scfold_* vs the diag A/B)."""
-    from graphlap_tpu.models.streaming import sinkhorn_sample_idx
+    fixed-point bias at cfg2 vs 0.005 dB for the diagonal sample)."""
+    from graphlap.models.streaming import sinkhorn_sample_idx
 
     for n_pad, k, w in ((512 * 512, 16, 512), (8192, 8, 64), (4096, 64, 64)):
         idx = sinkhorn_sample_idx(n_pad, k, w)

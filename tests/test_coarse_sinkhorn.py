@@ -14,8 +14,8 @@ streaming ones below.
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image, psnr
-from graphlap_tpu.config import PipelineConfig
+from graphlap import add_gaussian_noise, filter_image, make_test_image, psnr
+from graphlap.config import PipelineConfig
 
 
 @pytest.fixture(scope="module")
@@ -69,10 +69,10 @@ def test_polish_recovers_exactness(img96):
 
 
 def test_polish_batched_matches_single():
-    from graphlap_tpu.models.pipeline import make_plan
-    from graphlap_tpu.models.video import filter_video
-    from graphlap_tpu.parallel.mesh import make_mesh
-    from graphlap_tpu import add_gaussian_noise, make_test_image
+    from graphlap.models.pipeline import make_plan
+    from graphlap.models.video import filter_video
+    from graphlap.parallel.mesh import make_mesh
+    from graphlap import add_gaussian_noise, make_test_image
 
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
                          num_eigvecs=16, sinkhorn_iters=8, streaming=True,

@@ -1,7 +1,7 @@
 """Collective-volume invariants of the rows-sharded streaming builders.
 
 Pins the design claim quantified by benchmarks/collective_volume.py
-(VERDICT r3 #7): every collective that executes PER SINKHORN ITERATION
+: every collective that executes PER SINKHORN ITERATION
 carries p-class payloads (p-vectors / (p, p) grams — never anything
 N-sized), so communication volume is independent of image size while
 per-device work scales as N/R. GSPMD's generic lowering of jnp.take /
@@ -17,10 +17,10 @@ import jax
 
 
 def _hlo(batch: bool, side: int = 256):
-    import graphlap_tpu as gl
-    from graphlap_tpu.models.pipeline import make_plan
-    from graphlap_tpu.parallel.mesh import make_mesh
-    from graphlap_tpu.parallel.streaming_sharded import (
+    import graphlap as gl
+    from graphlap.models.pipeline import make_plan
+    from graphlap.parallel.mesh import make_mesh
+    from graphlap.parallel.streaming_sharded import (
         build_streaming_sharded, build_streaming_sharded_batch)
 
     n_dev = len(jax.devices())

@@ -6,22 +6,18 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
 
 def test_entry_compiles():
-    """entry() is the REAL 512^2 flagship since round 3 — on the suite's
-    CPU backend, EXECUTING it would cost minutes (the CPU baseline at this
-    shape is ~500 s), so this validates the driver contract compile-only;
-    execution at this exact shape runs on the TPU in bench.py every round
-    (same graph, same recipe)."""
+    """entry() is the REAL 512^2 flagship — on the suite's CPU backend,
+    EXECUTING it would cost minutes, so this validates the driver contract
+    compile-only; chip_smoke.py executes it on the GPU (same graph, same
+    recipe)."""
     import __graft_entry__ as ge
     fwd, args = ge.entry()
-    # entry() enables the TPU-facing persistent cache; restore the CPU
-    # suite's cache-off policy immediately (conftest rationale) instead
-    # of relying on a later dryrun test to do it
-    jax.config.update("jax_compilation_cache_dir", None)
     lowered = jax.jit(fwd).lower(*args)
     out_shapes = jax.tree_util.tree_leaves(lowered.out_info)
     assert out_shapes[0].shape == args[0].shape
@@ -58,29 +54,38 @@ def test_dryrun_multichip_bare_subprocess():
     assert "dryrun_multichip OK" in r.stdout
 
 
-def test_compile_cache_policy():
-    """Two-part cache policy (graphlap_tpu/utils/cache.py):
-    (1) the TPU-facing cache dir is HOST-FEATURE-KEYED — after a VM
-    migration, stale XLA:CPU AOT entries segfaulted on deserialization
-    (2026-08-18); a keyed dir cold-recompiles instead;
-    (2) CPU runs (this suite, the dryrun) DISABLE the persistent cache —
-    jaxlib's XLA:CPU AOT (de)serialize segfaulted three suite runs at
-    the ~90% mark, always deep into one long process."""
-    from graphlap_tpu.utils.cache import cache_dir, host_tag
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_policy(env_dir, tmp_path, monkeypatch):
+    """Cache rule (graphlap/utils/cache.py): JAX_COMPILATION_CACHE_DIR
+    is honoured exactly as given and nothing is set in code; without it
+    the cache is the fixed <repo>/.jax_cache; CPU runs turn it off."""
+    from graphlap.utils.cache import cache_dir, setup_compilation_cache
 
     root = Path(__file__).parent.parent
-    expect = cache_dir(root)
-    assert f"host-{host_tag()}" in expect
-    # conftest disabled the cache for the suite; importing __graft_entry__
-    # points it at the host-keyed dir (its TPU entry contract), and any
-    # dryrun re-disables it — both states are policy-conforming
-    cur = jax.config.jax_compilation_cache_dir
-    assert cur is None or Path(cur).resolve() == Path(expect).resolve()
+    sentinel = str(tmp_path / "set-by-jax")
+    jax.config.update("jax_compilation_cache_dir", sentinel)
+    try:
+        if env_dir is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            expect = str(root / ".jax_cache")
+            assert cache_dir(root) == expect
+            assert setup_compilation_cache(root) == expect
+            assert jax.config.jax_compilation_cache_dir == expect
+        else:
+            given = str(tmp_path / env_dir)
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", given)
+            assert cache_dir(root) == given
+            assert setup_compilation_cache(root) == given
+            # JAX reads the variable itself: the code set nothing
+            assert jax.config.jax_compilation_cache_dir == sentinel
+        assert setup_compilation_cache(root, cpu=True) is None
+        assert jax.config.jax_compilation_cache_dir is None
+    finally:
+        jax.config.update("jax_compilation_cache_dir", None)
 
 
 def test_make_mesh_validates_device_count():
-    import pytest
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap.parallel.mesh import make_mesh
     with pytest.raises(ValueError, match="devices"):
         make_mesh(n_rows=3, n_data=2)      # 6 != 8 fake devices
     with pytest.raises(ValueError, match="divide"):
@@ -95,11 +100,9 @@ def test_bench_contract_keys():
     assert bench.RUNS >= 1
     assert bench.MEGAPIXELS > 0
     # workload builds without device work
-    gl, cfg, img, noisy = bench.make_workload(pallas=True)
-    # r4 headline: strip_cache streaming recipe (natural-order strip; the
-    # Pallas emitter measures the same as XLA's fused emit there, so the
-    # pallas flag no longer shapes the headline config)
-    assert cfg.streaming and cfg.strip_cache
+    gl, cfg, img, noisy = bench.make_workload()
+    # the headline: the strip_cache streaming recipe of the "fast" preset
+    assert cfg.streaming and cfg.strip_cache and cfg.use_pallas
     assert img.shape == (bench.H, bench.W)
 
 

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphlap_tpu.ops.filters import (
+from graphlap.ops.filters import (
     FILTER_REGISTRY,
     apply_spectral_filter,
     apply_spectral_filter_np,
@@ -126,9 +126,9 @@ def test_config_and_ops_validation_agree():
     import numpy as np
     import pytest
 
-    from graphlap_tpu.config import FILTERS, PipelineConfig
-    from graphlap_tpu.ops.filters import (check_chebyshev_filter,
-                                          check_matvec_filter)
+    from graphlap.config import FILTERS, PipelineConfig
+    from graphlap.ops.filters import (check_chebyshev_filter,
+                                      check_matvec_filter)
 
     def accepts(fn, *a):
         try:

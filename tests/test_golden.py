@@ -9,9 +9,9 @@ from pathlib import Path
 
 import numpy as np
 
-from graphlap_tpu import filter_image
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.native import read_netpbm
+from graphlap import filter_image
+from graphlap.config import PipelineConfig
+from graphlap.native import read_netpbm
 
 GOLDEN = Path(__file__).parent / "golden"
 CFG = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.05, num_eigvecs=20)

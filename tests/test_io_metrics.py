@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from graphlap_tpu.io import (
+from graphlap.io import (
     add_gaussian_noise,
     load_image,
     make_test_image,
     save_image,
 )
-from graphlap_tpu.metrics import psnr, ssim
+from graphlap.metrics import psnr, ssim
 
 
 def test_save_load_roundtrip(tmp_path):
@@ -28,6 +28,18 @@ def test_save_load_rgb(tmp_path):
     back = load_image(path)
     assert back.shape == (16, 16, 3)
     assert np.abs(back - img).max() <= 1.0 / 255.0 + 1e-9
+
+
+def test_pillow_is_only_needed_for_png(tmp_path, monkeypatch):
+    """Without Pillow, .pgm still round-trips and PNG names the route."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    img = make_test_image(16, 24)
+    save_image(str(tmp_path / "x.pgm"), img)
+    assert load_image(str(tmp_path / "x.pgm")).shape == (16, 24)
+    with pytest.raises(ImportError, match="pgm/.ppm"):
+        save_image(str(tmp_path / "x.png"), img)
 
 
 def test_noise_deterministic_and_unbiased():
@@ -68,7 +80,7 @@ def test_make_test_image_properties():
 
 
 def test_config_validation():
-    from graphlap_tpu.config import PipelineConfig
+    from graphlap.config import PipelineConfig
     with pytest.raises(ValueError):
         PipelineConfig(kernel="nope")
     with pytest.raises(ValueError):

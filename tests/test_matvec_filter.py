@@ -1,7 +1,7 @@
 """filter_mode="matvec": exact polynomial f(W) y by strip matvecs.
 
-Why this mode exists (ops/filters.py MATVEC_FILTERS note, measured in
-benchmarks/results/cfg3_sweep.jsonl): kernel spectra collapse into
+Why this mode exists (ops/filters.py MATVEC_FILTERS note, measured at
+cfg3): kernel spectra collapse into
 near-degenerate clusters past the first few eigenvalues, so rank-m AFFINE
 filters — which weight the kept basis by f(lambda)-1 ~ beta instead of
 damping it by lambda ~ 0 — ride an ill-posed m-dim subspace selection; at
@@ -16,10 +16,10 @@ which composes the independent numpy twins.
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image
-from graphlap_tpu.config import CONFIG3, PipelineConfig
-from graphlap_tpu.models.pipeline import (compute_basis, filter_image_staged,
-                                          make_plan)
+from graphlap import add_gaussian_noise, filter_image, make_test_image
+from graphlap.config import CONFIG3, PipelineConfig
+from graphlap.models.pipeline import (compute_basis, filter_image_staged,
+                                      make_plan)
 
 from .oracle import oracle_filter_image
 
@@ -91,12 +91,12 @@ def test_matvec_matches_exact_dense_operator():
     eigendecompose it fully in float64, and compare f(M) y computed
     SPECTRALLY against the pipeline's recurrence for every matvec-capable
     filter."""
-    from graphlap_tpu.ops.affinity import affinity_strip_np, extract_features_np
-    from graphlap_tpu.ops.filters import FILTER_REGISTRY, apply_matvec_filter
-    from graphlap_tpu.ops.sinkhorn import (_make_kaa_solve_np,
-                                           normalize_blocks_np,
-                                           nystrom_matvec_np)
-    from graphlap_tpu.utils.sampling import uniform_grid_sample
+    from graphlap.ops.affinity import affinity_strip_np, extract_features_np
+    from graphlap.ops.filters import FILTER_REGISTRY, apply_matvec_filter
+    from graphlap.ops.sinkhorn import (_make_kaa_solve_np,
+                                       normalize_blocks_np,
+                                       nystrom_matvec_np)
+    from graphlap.utils.sampling import uniform_grid_sample
 
     side = 24
     img = make_test_image(side, side).astype(np.float64)
@@ -199,7 +199,7 @@ def test_cli_filter_flag_does_not_pin_filter_mode():
     exact match to its own flag) or every '-filter sharpen -preset fast'
     run would silently lose the affine->matvec routing; -filter_mode (and
     unambiguous prefixes of it) still pin."""
-    from graphlap_tpu.cli import _explicit_fields
+    from graphlap.cli import _explicit_fields
     assert "filter_mode" not in _explicit_fields(["-filter", "sharpen"])
     # ... -f (the INPUT FILE flag) must not pin it either — caught live by
     # a CLI drive: every real invocation passes -f, which prefix-matched
@@ -227,9 +227,9 @@ def test_matvec_symmetric_normalization(img64):
 def test_matvec_video_batch(img64):
     """filter_video routes through the batched sharded builder — its
     matvec branch must match per-frame filter_image."""
-    from graphlap_tpu.models.video import filter_video
-    from graphlap_tpu.models.pipeline import make_plan
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap.models.video import filter_video
+    from graphlap.models.pipeline import make_plan
+    from graphlap.parallel.mesh import make_mesh
 
     frames = np.stack([img64, np.roll(img64, 5, axis=0)])
     cfg = _cfg(sample_rho=0.03)

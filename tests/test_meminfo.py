@@ -1,7 +1,7 @@
 """Compile-time HBM accounting vs the analytic memory model.
 
 Pins utils/meminfo's XLA memory_analysis numbers against the regime table
-in docs/ARCHITECTURE.md §6 (VERDICT r3 #4): the dense path's peak is the
+in docs/ARCHITECTURE.md §6: the dense path's peak is the
 (p, N) strip; the streaming path materializes NO O(Np) buffer — its peak
 is O(Nd + Nm + p^2).
 """
@@ -9,9 +9,9 @@ is O(Nd + Nm + p^2).
 import numpy as np
 import pytest
 
-import graphlap_tpu as gl
-from graphlap_tpu.models.pipeline import make_plan
-from graphlap_tpu.utils.meminfo import peak_hbm_gib, pipeline_hbm_analysis
+import graphlap as gl
+from graphlap.models.pipeline import make_plan
+from graphlap.utils.meminfo import peak_hbm_gib, pipeline_hbm_analysis
 
 SIDE = 256
 

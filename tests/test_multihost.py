@@ -24,11 +24,11 @@ def _free_port() -> int:
 
 @pytest.mark.parametrize("streaming", [True, False])
 def test_two_process_launch_matches_single(tmp_path, streaming):
-    from graphlap_tpu import add_gaussian_noise, make_test_image
-    from graphlap_tpu.config import PipelineConfig
-    from graphlap_tpu.models.pipeline import make_plan
-    from graphlap_tpu.models.video import filter_video
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap import add_gaussian_noise, make_test_image
+    from graphlap.config import PipelineConfig
+    from graphlap.models.pipeline import make_plan
+    from graphlap.models.video import filter_video
+    from graphlap.parallel.mesh import make_mesh
 
     frames = np.stack([
         np.clip(add_gaussian_noise(make_test_image(32, 32, seed=s), 0.1,
@@ -43,7 +43,7 @@ def test_two_process_launch_matches_single(tmp_path, streaming):
     env_base = {k: v for k, v in os.environ.items()
                 if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     env_base.setdefault("JAX_COMPILATION_CACHE_DIR", str(ROOT / ".jax_cache"))
-    # subprocesses must resolve graphlap_tpu from the checkout, installed or not
+    # subprocesses must resolve graphlap from the checkout, installed or not
     env_base["PYTHONPATH"] = str(ROOT) + (
         os.pathsep + env_base["PYTHONPATH"] if env_base.get("PYTHONPATH") else "")
     for pid in range(2):
@@ -78,13 +78,13 @@ def test_two_process_launch_matches_single(tmp_path, streaming):
 
 
 def test_two_process_production_recipe_128(tmp_path):
-    """VERDICT r2 item 2: the PRODUCTION recipe (bf16 tiles + Pallas
+    """the PRODUCTION recipe (bf16 tiles + Pallas
     [interpret on CPU] + coarse Sinkhorn + one full-res polish + coarse
     gram) crossing a REAL process boundary at 128^2 — the headline compile
     path, not a toy f32 variant. Pixels must match the single-process
     streaming filter with the same recipe."""
-    from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image
-    from graphlap_tpu.config import PipelineConfig
+    from graphlap import add_gaussian_noise, filter_image, make_test_image
+    from graphlap.config import PipelineConfig
 
     img = np.clip(add_gaussian_noise(make_test_image(128, 128, seed=2), 0.1,
                                      seed=2), 0, 1).astype(np.float32)
@@ -131,7 +131,7 @@ def test_two_process_production_recipe_128(tmp_path):
     # amplify it — pixel atol is the wrong assertion here; require
     # PSNR-class agreement (measured ~50 dB) and that the delta would not
     # move the graded PSNR-vs-clean metric
-    from graphlap_tpu import psnr
+    from graphlap import psnr
     clean = make_test_image(128, 128, seed=2)
     assert psnr(want, got) > 45.0
     assert abs(psnr(clean, got) - psnr(clean, want)) < 0.02
@@ -143,11 +143,11 @@ def test_two_process_dense_production_recipe(tmp_path):
     at cfg2 scale) crossing a REAL 2-process jax.distributed boundary in
     the dense sharded pipeline. Pixels must match the single-process
     filter_video with the same recipe."""
-    from graphlap_tpu import add_gaussian_noise, make_test_image, psnr
-    from graphlap_tpu.config import PipelineConfig
-    from graphlap_tpu.models.pipeline import make_plan
-    from graphlap_tpu.models.video import filter_video
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap import add_gaussian_noise, make_test_image, psnr
+    from graphlap.config import PipelineConfig
+    from graphlap.models.pipeline import make_plan
+    from graphlap.models.video import filter_video
+    from graphlap.parallel.mesh import make_mesh
 
     frames = np.stack([
         np.clip(add_gaussian_noise(make_test_image(64, 64, seed=s), 0.1,
@@ -202,8 +202,8 @@ def test_two_process_single_image_rows_sharded(tmp_path):
     """Config-4 DCN analogue: ONE image's pixel blocks sharded over 'rows'
     spanning two real jax.distributed processes; pixels must match the
     single-process streaming filter."""
-    from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image
-    from graphlap_tpu.config import PipelineConfig
+    from graphlap import add_gaussian_noise, filter_image, make_test_image
+    from graphlap.config import PipelineConfig
 
     img = np.clip(add_gaussian_noise(make_test_image(32, 32, seed=0), 0.1,
                                      seed=0), 0, 1).astype(np.float32)
@@ -250,8 +250,8 @@ def test_two_process_matvec_sharpen_recipe(tmp_path):
     polish, no eigensolve) across a REAL 2-process jax.distributed group —
     the no-eigensolve code path's psum chain crossing a process boundary.
     Pixels must match the single-process matvec filter."""
-    from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image
-    from graphlap_tpu.config import PipelineConfig
+    from graphlap import add_gaussian_noise, filter_image, make_test_image
+    from graphlap.config import PipelineConfig
 
     img = np.clip(add_gaussian_noise(make_test_image(128, 128, seed=5), 0.03,
                                      seed=5), 0, 1).astype(np.float32)
@@ -298,7 +298,7 @@ def test_two_process_matvec_sharpen_recipe(tmp_path):
     assert got.shape == want.shape
     # same bf16-repartition tolerance rationale as the spectral
     # production-recipe test above
-    from graphlap_tpu import psnr
+    from graphlap import psnr
     clean = make_test_image(128, 128, seed=5)
     assert psnr(want, got) > 45.0
     assert abs(psnr(clean, got) - psnr(clean, want)) < 0.02
@@ -310,9 +310,9 @@ def test_two_process_temporal_guide_matches_single(tmp_path):
     share one guide-built basis with pixel rows sharded over both
     processes' devices; pixels must match the single-process guided
     path."""
-    from graphlap_tpu import add_gaussian_noise, make_test_image
-    from graphlap_tpu.config import PipelineConfig
-    from graphlap_tpu.models.video import filter_video
+    from graphlap import add_gaussian_noise, make_test_image
+    from graphlap.config import PipelineConfig
+    from graphlap.models.video import filter_video
 
     frames = np.stack([
         np.clip(add_gaussian_noise(make_test_image(32, 32, seed=s), 0.1,

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from graphlap_tpu import native
-from graphlap_tpu.io import load_image, save_image
-from graphlap_tpu.metrics import psnr
-from graphlap_tpu.native import (
+from graphlap import native
+from graphlap.io import load_image, save_image
+from graphlap.metrics import psnr
+from graphlap.native import (
     _read_netpbm_py,
     _write_netpbm_py,
     add_noise_native,
@@ -87,7 +87,7 @@ def test_psnr_native_matches_numpy():
 
 
 def test_io_routes_netpbm(tmp_path):
-    from graphlap_tpu.io import make_test_image
+    from graphlap.io import make_test_image
     img = make_test_image(24, 24)
     p = str(tmp_path / "img.pgm")
     save_image(p, img)
@@ -102,8 +102,8 @@ def test_io_routes_netpbm(tmp_path):
 
 
 def test_ssim_native_matches_numpy():
-    from graphlap_tpu.metrics import ssim
-    from graphlap_tpu.native import ssim_native
+    from graphlap.metrics import ssim
+    from graphlap.native import ssim_native
 
     rng = np.random.default_rng(3)
     a = rng.uniform(0, 1, (48, 40))
@@ -115,7 +115,7 @@ def test_ssim_native_matches_numpy():
     rgb_b = np.stack([b, np.roll(b, 3, 0), b], axis=-1)
     assert abs(ssim_native(rgb_a, rgb_b) - ssim(rgb_a, rgb_b)) < 1e-12
     # window larger than the image -> actionable error, not UB
-    from graphlap_tpu.native import HAVE_NATIVE, _native
+    from graphlap.native import HAVE_NATIVE, _native
     if HAVE_NATIVE and hasattr(_native, "ssim"):
         with pytest.raises(ValueError):
             _native.ssim(a[:4, :4].tobytes(), a[:4, :4].tobytes(),

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.io import make_test_image
-from graphlap_tpu.ops.affinity import affinity_strip_np, extract_features_np
-from graphlap_tpu.ops.nystrom import nystrom_eigh, nystrom_eigh_np
-from graphlap_tpu.ops.sinkhorn import normalize_blocks_np
-from graphlap_tpu.utils.sampling import uniform_grid_sample
+from graphlap.config import PipelineConfig
+from graphlap.io import make_test_image
+from graphlap.ops.affinity import affinity_strip_np, extract_features_np
+from graphlap.ops.nystrom import nystrom_eigh, nystrom_eigh_np
+from graphlap.ops.sinkhorn import normalize_blocks_np
+from graphlap.utils.sampling import uniform_grid_sample
 
 TOL = 3e-3
 

@@ -1,15 +1,16 @@
-"""Pallas fused affinity kernel vs oracle (interpret mode on CPU;
-the real-TPU run happens in bench/benchmarks)."""
+"""Pallas kernels (Triton route) vs the float64 oracle and their XLA
+twins, in interpret mode on the CPU; the compiled kernels are checked on
+the GPU by tests/test_gpu.py and chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.io import make_test_image
-from graphlap_tpu.ops.affinity import affinity_strip_np, extract_features_np
-from graphlap_tpu.ops.pallas_affinity import affinity_strip_pallas
-from graphlap_tpu.utils.sampling import uniform_grid_sample
+from graphlap.config import PipelineConfig
+from graphlap.io import make_test_image
+from graphlap.ops.affinity import affinity_strip_np, extract_features_np
+from graphlap.ops.pallas_affinity import affinity_strip_pallas
+from graphlap.utils.sampling import uniform_grid_sample
 
 
 @pytest.fixture(scope="module")
@@ -54,180 +55,12 @@ def test_pallas_feature_dim_guard():
 
 def test_pipeline_with_pallas_flag(feats):
     """cfg.use_pallas routes the fused kernel through the full pipeline."""
-    from graphlap_tpu import filter_image
+    from graphlap import filter_image
     img = make_test_image(48, 48, seed=3)
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.04, num_eigvecs=16)
     a = filter_image(img, cfg)
     b = filter_image(img, cfg.replace(use_pallas=True))
     np.testing.assert_allclose(a.image, b.image, atol=1e-4)
-
-
-def test_colstats_v_pallas_matches_xla():
-    """Fused colstats+V kernel == the XLA scan twin (interpret mode), in
-    both f32 and the bf16-GEMM-inputs-only precision policy."""
-    import jax.numpy as jnp
-
-    from graphlap_tpu.ops import pallas_streaming as pst
-    from graphlap_tpu.ops import streaming as st
-
-    rng = np.random.default_rng(3)
-    p, n_pad, d, m, block = 512, 2048, 25, 20, 512
-    feats_a = jnp.asarray(rng.normal(size=(p, d)).astype(np.float32))
-    feats_pad = jnp.asarray(rng.normal(size=(n_pad, d)).astype(np.float32))
-    g = jnp.asarray(rng.normal(size=(p, m)).astype(np.float32))
-    y = jnp.asarray(rng.normal(size=(n_pad,)).astype(np.float32))
-    rs = jnp.asarray(rng.uniform(0.5, 1.5, p).astype(np.float32))
-    cs = jnp.asarray(rng.uniform(0.0, 1.5, n_pad).astype(np.float32))
-
-    _, p_pad = pst.p_tiling(p)
-    gr = (jnp.zeros((p_pad, pst.M_PAD), jnp.float32)
-          .at[:p, :m].set(g * rs[:, None]))
-    na = (jnp.zeros(p_pad, jnp.float32)
-          .at[:p].set(jnp.sum(feats_a * feats_a, axis=1)))
-    nb = jnp.sum(feats_pad * feats_pad, axis=1)
-
-    for dtype, atol in ((jnp.float32, 1e-5), (jnp.bfloat16, 2e-3)):
-        norms_x, coeffs_x, v_x = st.rmatmat_colstats_v(
-            feats_a, feats_pad, g, y, rs, cs, block, dtype)
-        fa_pad = (jnp.zeros((p_pad, pst.D_PAD), dtype)
-                  .at[:p, :d].set(feats_a.astype(dtype)))
-        f_t = (jnp.zeros((pst.D_PAD, n_pad), dtype)
-               .at[:d, :].set(feats_pad.astype(dtype).T))
-        v_p, ns_p, co_p = pst.colstats_v_pallas(fa_pad, f_t, gr, y, cs,
-                                                na, nb)
-        np.testing.assert_allclose(np.asarray(v_p[:, :m]), np.asarray(v_x),
-                                   atol=atol)
-        np.testing.assert_allclose(np.asarray(ns_p[:m]), np.asarray(norms_x),
-                                   rtol=100 * atol)
-        np.testing.assert_allclose(np.asarray(co_p[:m]), np.asarray(coeffs_x),
-                                   rtol=100 * atol, atol=10 * atol)
-        assert float(jnp.abs(v_p[:, m:]).max()) == 0.0   # pad cols exact 0
-
-    # a width the grid would FLOOR past (n_pad % EMIT_TN != 0 — e.g. the
-    # f32 matvec tiling's 256-padding) must raise, not silently zero the
-    # tail columns
-    f_t_odd = (jnp.zeros((pst.D_PAD, n_pad + 256), jnp.float32)
-               .at[:d, :n_pad].set(feats_pad.astype(jnp.float32).T))
-    fa32 = (jnp.zeros((p_pad, pst.D_PAD), jnp.float32)
-            .at[:p, :d].set(feats_a))
-    import pytest
-    with pytest.raises(ValueError, match="EMIT_TN"):
-        pst.colstats_v_pallas(fa32, f_t_odd,
-                              gr, jnp.zeros(n_pad + 256), jnp.zeros(n_pad + 256),
-                              na, jnp.zeros(n_pad + 256))
-
-
-def test_ext2_matvec_pallas_matches_xla():
-    """Fused extension+polish-matvec kernel == the two-sweep XLA
-    composition (rmatvec2 -> s -> matvec), f32 exact / bf16 same class."""
-    import jax.numpy as jnp
-
-    from graphlap_tpu.ops import pallas_streaming as pst
-    from graphlap_tpu.ops import streaming as st
-
-    rng = np.random.default_rng(5)
-    p, n_pad, d, block = 512, 2048, 25, 512
-    feats_a = jnp.asarray(rng.normal(0, 0.3, size=(p, d)).astype(np.float32))
-    feats_pad = jnp.asarray(
-        rng.normal(0, 0.3, size=(n_pad, d)).astype(np.float32))
-    t_r = jnp.asarray(rng.uniform(0.5, 1.5, p).astype(np.float32))
-    t_c = jnp.asarray(rng.uniform(0.5, 1.5, p).astype(np.float32))
-    b_mask = jnp.asarray((rng.uniform(size=n_pad) > 0.2).astype(np.float32))
-    ones_p = jnp.ones(p, jnp.float32)
-    _, p_pad = pst.p_tiling(p)
-
-    for dtype, tol in ((jnp.float32, 2e-5), (jnp.bfloat16, 2e-2)):
-        kbt = st.rmatvec2(feats_a, feats_pad, jnp.stack([t_r, t_c], axis=1),
-                          b_mask, block, dtype)
-        prod = jnp.maximum(kbt[:, 0] * kbt[:, 1], 1e-30)
-        s_x = b_mask / jnp.sqrt(prod)
-        u_x = st.matvec(feats_a, feats_pad, s_x, ones_p,
-                        jnp.ones_like(s_x), block, dtype)
-        dp = pst.d_pad_of(d)
-        tn = pst._tile_n(dtype)
-        n_k = -(-n_pad // tn) * tn
-        fa_pad = (jnp.zeros((p_pad, dp), dtype)
-                  .at[:p, :d].set(feats_a.astype(dtype)))
-        f_t = (jnp.zeros((dp, n_k), dtype)
-               .at[:d, :n_pad].set(feats_pad.astype(dtype).T))
-        bm_k = jnp.zeros(n_k, jnp.float32).at[:n_pad].set(b_mask)
-        t2 = (jnp.zeros((2, p_pad), jnp.float32)
-              .at[0, :p].set(t_r).at[1, :p].set(t_c))
-        u_p, s_p = pst.ext2_matvec_pallas(fa_pad, f_t, t2, bm_k)
-        scale_u = float(jnp.abs(u_x).max())
-        scale_s = float(jnp.abs(s_x).max())
-        np.testing.assert_allclose(np.asarray(u_p[:p]), np.asarray(u_x),
-                                   atol=tol * scale_u)
-        np.testing.assert_allclose(np.asarray(s_p[:n_pad]), np.asarray(s_x),
-                                   atol=tol * scale_s)
-        if n_k > n_pad:          # pad columns vanish exactly (bm = 0)
-            assert float(jnp.abs(s_p[n_pad:]).max()) == 0.0
-
-    with pytest.raises(ValueError, match="whole-p"):
-        pst.ext2_matvec_pallas(
-            jnp.zeros((2 * pst.MAX_TILE_P, 32), jnp.float32),
-            jnp.zeros((32, 1024), jnp.float32),
-            jnp.zeros((2, 2 * pst.MAX_TILE_P)), jnp.zeros(1024))
-
-
-def test_finish_colstats_pallas_matches_xla():
-    """Fused rmatvec+scale-update+colstats kernel == the XLA composition
-    (rmatvec -> s_new -> rmatmat_colstats_v), both precision classes."""
-    import jax.numpy as jnp
-
-    from graphlap_tpu.ops import pallas_streaming as pst
-    from graphlap_tpu.ops import streaming as st
-
-    rng = np.random.default_rng(6)
-    p, n_pad, d, m, block = 512, 2048, 25, 20, 512
-    feats_a = jnp.asarray(rng.normal(0, 0.3, size=(p, d)).astype(np.float32))
-    feats_pad = jnp.asarray(
-        rng.normal(0, 0.3, size=(n_pad, d)).astype(np.float32))
-    g = jnp.asarray(rng.normal(size=(p, m)).astype(np.float32))
-    y = jnp.asarray(rng.normal(size=(n_pad,)).astype(np.float32))
-    rs = jnp.asarray(rng.uniform(0.5, 1.5, p).astype(np.float32))
-    t = jnp.asarray(rng.uniform(0.5, 1.5, p).astype(np.float32))
-    s_pre = jnp.asarray(rng.uniform(0.0, 1.5, n_pad).astype(np.float32))
-    b_mask = jnp.asarray((rng.uniform(size=n_pad) > 0.2).astype(np.float32))
-    s_pre = s_pre * b_mask
-    ones_p = jnp.ones(p, jnp.float32)
-    _, p_pad = pst.p_tiling(p)
-
-    for dtype, tol in ((jnp.float32, 2e-5), (jnp.bfloat16, 5e-3)):
-        ks_x = st.rmatvec(feats_a, feats_pad, t, ones_p,
-                          jnp.ones(n_pad, jnp.float32), block, dtype)
-        s_new_x = jnp.sqrt(s_pre / jnp.maximum(ks_x, 1e-30)) * b_mask
-        norms_x, coeffs_x, v_x = st.rmatmat_colstats_v(
-            feats_a, feats_pad, g, y, rs, s_new_x, block, dtype)
-        dp = pst.d_pad_of(d)
-        n_k = n_pad                      # 2048 % FIN_TN == 0 already
-        fa_pad = (jnp.zeros((p_pad, dp), dtype)
-                  .at[:p, :d].set(feats_a.astype(dtype)))
-        f_t = (jnp.zeros((dp, n_k), dtype)
-               .at[:d, :n_pad].set(feats_pad.astype(dtype).T))
-        na = (jnp.zeros(p_pad, jnp.float32)
-              .at[:p].set(jnp.sum(feats_a * feats_a, axis=1)))
-        nb = jnp.sum(feats_pad * feats_pad, axis=1)
-        t_pad = jnp.zeros(p_pad, jnp.float32).at[:p].set(t)
-        for m_pad in (64, pst.M_PAD):    # both eigvec pads (m_pad_of)
-            gr = (jnp.zeros((p_pad, m_pad), jnp.float32)
-                  .at[:p, :m].set(g * rs[:, None]))
-            v_p, ns_p, co_p, s_nk = pst.finish_colstats_pallas(
-                fa_pad, f_t, t_pad, s_pre, b_mask, gr, y, na, nb)
-            sv = float(jnp.abs(v_x).max())
-            np.testing.assert_allclose(np.asarray(v_p[:n_pad, :m]),
-                                       np.asarray(v_x), atol=tol * sv)
-            np.testing.assert_allclose(np.asarray(s_nk[:n_pad]),
-                                       np.asarray(s_new_x),
-                                       atol=tol * float(jnp.abs(s_new_x)
-                                                        .max()))
-            np.testing.assert_allclose(np.asarray(ns_p[:m]),
-                                       np.asarray(norms_x), rtol=100 * tol)
-            np.testing.assert_allclose(np.asarray(co_p[:m]),
-                                       np.asarray(coeffs_x), rtol=100 * tol,
-                                       atol=tol * float(jnp.abs(coeffs_x)
-                                                        .max()))
-            assert float(jnp.abs(v_p[:, m:]).max()) == 0.0
 
 
 def test_streaming_kernels_narrow_d_pad():
@@ -239,7 +72,7 @@ def test_streaming_kernels_narrow_d_pad():
     re-associate with the padded width, so last-ulp, not bitwise)."""
     import jax.numpy as jnp
 
-    from graphlap_tpu.ops import pallas_streaming as pst
+    from graphlap.ops import pallas_streaming as pst
 
     rng = np.random.default_rng(7)
     p, n_pad, d = 512, 1024, 25
@@ -279,78 +112,181 @@ def test_streaming_kernels_narrow_d_pad():
         pst.rmatvec_pallas(fa32[:, :24], ft32[:24], jnp.asarray(t))
 
 
-def test_aug_pads_survives_jit():
-    """aug_pads under jit must produce the SAME operands as eager.
-    XLA:TPU's excess-precision simplifier elides f32->bf16->f32
-    round-trips inside a fused program: before the optimization_barriers
-    in aug_pads, a jitted trace computed na/nb from the UNROUNDED
-    features and collapsed the compensated split lanes to exact zero
-    (measured on-chip: jit lanes [35.25, 0, 0] vs eager
-    [35.5, -0.1235, 0.00022]) — the r5 0.65-0.88 dB matvec-route
-    regression. Eager/CPU/staged runs never reproduce it, so pin BOTH
-    eager==jit equality and the structural property that the mid lanes
-    are nonzero (a collapsed split zeroes them on any backend)."""
-    from graphlap_tpu.ops import pallas_streaming as pst
+# ---------------------------------------------------------------------------
+# Triton-route streaming matvecs (interpret mode) vs the float64 oracle
+# strip and the XLA scan twin
+# ---------------------------------------------------------------------------
 
-    rng = np.random.default_rng(11)
-    p, n, d = 16, 32, 25
-    fa = jnp.asarray(rng.random((p, d), np.float32) * 2.0)
-    fn = jnp.asarray(rng.random((n, d), np.float32) * 2.0)
+def _streaming_operands(p, n, dtype, seed=0):
+    """Real NLM features of a noisy test image (the oracle's numpy feature
+    twin), padded to the kernels' own tiling, plus positive vectors."""
+    from graphlap.ops import pallas_streaming as pst
+
+    side = int(np.ceil(np.sqrt(n)))
+    img = make_test_image(side, side, seed=seed)
+    cfg = PipelineConfig(kernel="nlm", h=0.25)
+    feats = extract_features_np(img, cfg)[:n]
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(n, p, replace=False))
+    fa, fn = feats[idx], feats
+    n_pad = pst.n_pad_for(n)
+    fa_pad, f_t = pst.feature_pads(jnp.asarray(fa, jnp.float32),
+                                   jnp.asarray(fn, jnp.float32), n_pad, dtype)
+    v = rng.uniform(0.5, 1.5, n)
+    t = rng.uniform(0.5, 1.5, p)
+    return fa, fn, fa_pad, f_t, v, t
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("p,n", [(64, 2048),      # whole tiles
+                                 (100, 3001),     # p, N off the tiles, odd N
+                                 (37, 1961)])     # p under one tile
+@pytest.mark.parametrize("kernel", ["matvec", "rmatvec"])
+def test_triton_matvecs_match_oracle_and_xla(kernel, p, n, dtype):
+    from graphlap.ops import pallas_streaming as pst
+    from graphlap.ops import streaming as st
+
+    fa, fn, fa_pad, f_t, v, t = _streaming_operands(p, n, dtype)
+    # the oracle strip on the operands the kernel sees (bf16-rounded
+    # features when the tiles are bf16), in float64
+    fa_r = np.asarray(jnp.asarray(fa, jnp.float32).astype(dtype), np.float64)
+    fn_r = np.asarray(jnp.asarray(fn, jnp.float32).astype(dtype), np.float64)
+    k_oracle = affinity_strip_np(fa_r, fn_r)
+    ones_p, ones_n = jnp.ones(p, jnp.float32), jnp.ones(n, jnp.float32)
+    if kernel == "matvec":
+        vk = jnp.zeros(f_t.shape[1], jnp.float32).at[:n].set(v)
+        out = np.asarray(pst.matvec_pallas(fa_pad, f_t, vk))
+        ref = k_oracle @ v
+        xla = np.asarray(st.matvec(jnp.asarray(fa_r, jnp.float32),
+                                   jnp.asarray(fn_r, jnp.float32),
+                                   jnp.asarray(v, jnp.float32), ones_p,
+                                   ones_n, n, jnp.float32))
+        body, pad = out[:p], out[p:]
+    else:
+        tk = jnp.zeros(fa_pad.shape[0], jnp.float32).at[:p].set(t)
+        out = np.asarray(pst.rmatvec_pallas(fa_pad, f_t, tk))
+        ref = k_oracle.T @ t
+        xla = np.asarray(st.rmatvec(jnp.asarray(fa_r, jnp.float32),
+                                    jnp.asarray(fn_r, jnp.float32),
+                                    jnp.asarray(t, jnp.float32), ones_p,
+                                    ones_n, n, jnp.float32))
+        body, pad = out[:n], out[n:]
+    scale = np.abs(ref).max()
+    assert np.abs(body - ref).max() <= 1e-5 * scale
+    assert np.abs(body - xla).max() <= 1e-5 * scale
+    assert np.isfinite(pad).all()
+
+
+@pytest.mark.parametrize("kernel", ["matvec", "rmatvec"])
+def test_triton_matvecs_padding_is_exact(kernel):
+    """Zero vector entries make the padded rows/columns exact no-ops, even
+    when the padded FEATURES hold garbage (the contract callers rely on)."""
+    from graphlap.ops import pallas_streaming as pst
+
+    p, n = 100, 3001
+    _, _, fa_pad, f_t, v, t = _streaming_operands(p, n, jnp.float32, seed=3)
+    junk_fa = fa_pad.at[p:].set(7.0)
+    junk_ft = f_t.at[:, n:].set(-3.0)
+    if kernel == "matvec":
+        vk = jnp.zeros(f_t.shape[1], jnp.float32).at[:n].set(v)
+        clean = pst.matvec_pallas(fa_pad, f_t, vk)[:p]
+        dirty = pst.matvec_pallas(junk_fa, junk_ft, vk)[:p]
+    else:
+        tk = jnp.zeros(fa_pad.shape[0], jnp.float32).at[:p].set(t)
+        clean = pst.rmatvec_pallas(fa_pad, f_t, tk)[:n]
+        dirty = pst.rmatvec_pallas(junk_fa, junk_ft, tk)[:n]
+    np.testing.assert_array_equal(np.asarray(clean), np.asarray(dirty))
+
+
+def test_triton_matvec_tiling_helpers():
+    """Pads follow the kernels' own tiles; the matvec n-split is a
+    power-of-two divisor of the n tile count; off-tile pads refuse."""
+    from graphlap.ops import pallas_streaming as pst
+
+    assert pst.p_tiling(4096) == (pst.TILE_P, 4096)
+    assert pst.p_tiling(5243)[1] % pst.TILE_P == 0
+    for n in (1, 1961, 2048, 8 * 2**20 + 5):
+        q = pst.n_pad_for(n)
+        assert q >= n and q % (16 * pst.TILE_N) == 0
+    for p_pad, n_tiles in ((4096, 65536), (64, 16), (640, 24), (64, 1)):
+        s = pst._matvec_splits(p_pad, n_tiles, pst.TILE_P)
+        assert s & (s - 1) == 0 and n_tiles % s == 0
+        assert (p_pad // pst.TILE_P) * s <= 2 * pst.MATVEC_TARGET_BLOCKS
+    fa = jnp.zeros((100, 32), jnp.float32)            # p not tile-padded
+    with pytest.raises(ValueError, match="p_tiling"):
+        pst.matvec_pallas(fa, jnp.zeros((32, 2048)), jnp.zeros(2048))
+    fa = jnp.zeros((64, 32), jnp.float32)             # n not tile-padded
+    with pytest.raises(ValueError, match="n_pad_for"):
+        pst.rmatvec_pallas(fa, jnp.zeros((32, 2000)), jnp.zeros(64))
+
+
+@pytest.mark.parametrize("backend,expect", [("cpu", True), ("gpu", False),
+                                            ("metal", None)])
+def test_interpret_mode_follows_backend(backend, expect, monkeypatch):
+    """ONE helper picks how every Pallas kernel runs: interpret on the CPU
+    backend, compiled through Triton on a GPU, refused elsewhere."""
     import jax
 
-    eag = pst.aug_pads(fa, fn, 32)
-    jit = jax.jit(lambda a, b: pst.aug_pads(a, b, 32))(fa, fn)
-    for e, j in zip(eag, jit):
-        np.testing.assert_array_equal(np.asarray(e, np.float32),
-                                      np.asarray(j, np.float32))
-    # mid compensation lanes must carry actual residue, not zeros
-    assert np.abs(np.asarray(jit[0], np.float32)[:p, d + 1]).max() > 0
-    assert np.abs(np.asarray(jit[1], np.float32)[d + 4, :n]).max() > 0
+    from graphlap.ops import pallas_streaming as pst
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if expect is None:
+        with pytest.raises(NotImplementedError, match="Triton"):
+            pst.interpret_mode()
+    else:
+        assert pst.interpret_mode() is expect
 
 
-def test_aug_layout_matches_plain_at_large_norms():
-    """The augmented-GEMM layout must reproduce the PLAIN bf16 tile
-    essentially exactly at PRODUCTION feature magnitudes (NLM features
-    scaled 1/h carry square norms ~100): the three-lane compensated
-    split's residue (~2^-24 |f|^2) re-quantizes to the IDENTICAL bf16
-    kernel tile (aug_numerics probe: kb diff exactly 0), so aug and
-    plain matvec/rmatvec outputs must agree to f32-accumulation noise,
-    NOT a loose quality tolerance. (The r5 quality regression was NOT
-    this tile math but XLA eliding the roundings under jit — see
-    test_aug_pads_survives_jit.)"""
-    from graphlap_tpu.ops import pallas_streaming as pst
+def test_every_pallas_call_names_its_route():
+    """No pallas_call without backend="triton" (an unnamed route defaults
+    to Mosaic GPU in this JAX), and no import of another chip's Pallas
+    dialect."""
+    import ast
+    import pathlib
 
-    rng = np.random.default_rng(7)
-    p, n, d = 256, 2048, 25
-    # production-scale magnitudes: the h-scaled NLM feature lanes measure
-    # range [0, 2] with square norms up to ~87 on the 512^2 test image
-    # (.scratch-r5/aug_numerics.py probe) — match that class
-    base = rng.random((n, d), np.float32) * 2.0
-    fa = jnp.asarray(base[:p])
-    fn = jnp.asarray(base)
-    _, p_pad = pst.p_tiling(p)
-    tn = pst._tile_n(jnp.bfloat16)
-    n_pad = ((n + tn - 1) // tn) * tn
+    root = pathlib.Path(__file__).resolve().parent.parent / "graphlap"
+    calls = 0
+    for path in root.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.ImportFrom) and node.module
+                    and node.module.startswith("jax.experimental.pallas")):
+                names = {a.name for a in node.names}
+                assert (node.module == "jax.experimental.pallas.triton"
+                        or names <= {"triton"}), f"{path}:{node.lineno}"
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "attr", None) == "pallas_call"):
+                calls += 1
+                kw = {k.arg: k.value for k in node.keywords}
+                assert "backend" in kw, f"{path}:{node.lineno}"
+                assert kw["backend"].value == "triton", f"{path}:{node.lineno}"
+    assert calls == 3     # matvec, rmatvec, affinity emitter
 
-    fa_aug, ft_aug = pst.aug_pads(fa, fn, n_pad)
-    dp_plain = pst.d_pad_of(d)
-    fa_plain = jnp.zeros((p_pad, dp_plain), jnp.bfloat16).at[:p, :d].set(
-        fa.astype(jnp.bfloat16))
-    ft_plain = jnp.zeros((dp_plain, n_pad), jnp.bfloat16).at[:d, :n].set(
-        fn.astype(jnp.bfloat16).T)
 
-    v = jnp.zeros(n_pad, jnp.float32).at[:n].set(
-        jnp.asarray(rng.standard_normal(n), jnp.float32))
-    mv_aug = np.asarray(pst.matvec_pallas(fa_aug, ft_aug, v, aug=True))[:p]
-    mv_pl = np.asarray(pst.matvec_pallas(fa_plain, ft_plain, v,
-                                         aug=False))[:p]
-    scale = np.abs(mv_pl).max()
-    assert np.abs(mv_aug - mv_pl).max() <= 5e-5 * scale
+def test_affinity_emitter_bf16_store_matches_xla(feats):
+    """bfloat16_store: f32 distances/exp, bf16 strip — within one bf16 ulp
+    of the XLA twin, exact (p, N) shape off the tiles."""
+    from graphlap.ops.affinity import affinity_strip
 
-    t = jnp.zeros(p_pad, jnp.float32).at[:p].set(
-        jnp.asarray(rng.standard_normal(p), jnp.float32))
-    rmv_aug = np.asarray(pst.rmatvec_pallas(fa_aug, ft_aug, t, aug=True))[:n]
-    rmv_pl = np.asarray(pst.rmatvec_pallas(fa_plain, ft_plain, t,
-                                           aug=False))[:n]
-    rscale = np.abs(rmv_pl).max()
-    assert np.abs(rmv_aug - rmv_pl).max() <= 5e-5 * rscale
+    a = jnp.asarray(feats[:77], jnp.float32)
+    b = jnp.asarray(feats[:1500], jnp.float32)
+    out = affinity_strip_pallas(a, b, store_dtype=jnp.bfloat16)
+    ref = affinity_strip(a, b, jnp.float32, store_dtype=jnp.bfloat16)
+    assert out.shape == (77, 1500) and out.dtype == jnp.bfloat16
+    diff = jnp.abs(out.astype(jnp.float32) - ref.astype(jnp.float32))
+    assert float(diff.max()) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_checks_report_ok_at_toy_width(dtype):
+    """The on-card check bodies (utils/kernel_checks.py) run end to end in
+    interpret mode and hold their stated tolerances at a toy width."""
+    from graphlap.utils import kernel_checks as kc
+
+    fa, fn, *_ = _streaming_operands(64, 2048, dtype, seed=5)
+    rows = kc.check_streaming_kernels(jnp.asarray(fa, jnp.float32),
+                                      jnp.asarray(fn, jnp.float32), dtype,
+                                      block=1024, runs=1)
+    assert [r["kernel"].split("_")[0] for r in rows] == ["matvec", "rmatvec"]
+    assert all(r["ok"] for r in rows), rows

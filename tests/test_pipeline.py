@@ -8,14 +8,14 @@ looser tolerance (see ops/nystrom.py precision caveat).
 import numpy as np
 import pytest
 
-from graphlap_tpu import (
+from graphlap import (
     add_gaussian_noise,
     filter_image,
     filter_image_staged,
     make_test_image,
     psnr,
 )
-from graphlap_tpu.config import CONFIG1, CONFIG2, PipelineConfig
+from graphlap.config import CONFIG1, CONFIG2, PipelineConfig
 
 from .oracle import oracle_filter_image
 
@@ -149,12 +149,12 @@ def test_dense_strip_guard(monkeypatch, tmp_path, capsys):
     """Past the strip bound: library raises an actionable error, CLI
     auto-switches to streaming (models/pipeline.py check_dense_feasible)."""
     import pytest
-    from graphlap_tpu.models import pipeline as pl
+    from graphlap.models import pipeline as pl
 
     img = make_test_image(64, 64, seed=3)
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.05,
                          num_eigvecs=12)
-    monkeypatch.setattr(pl, "DENSE_STRIP_BYTES_LIMIT", 1e3)
+    monkeypatch.setattr(pl, "dense_strip_bytes_limit", lambda: 1e3)
     with pytest.raises(ValueError, match="streaming"):
         filter_image(img, cfg)
     # streaming configs are exempt (block smaller than N to keep scan live)
@@ -162,8 +162,8 @@ def test_dense_strip_guard(monkeypatch, tmp_path, capsys):
     assert np.isfinite(res.image).all()
 
     # CLI: auto-enables -streaming instead of raising
-    from graphlap_tpu import save_image
-    from graphlap_tpu.cli import main as cli_main
+    from graphlap import save_image
+    from graphlap.cli import main as cli_main
     fin = str(tmp_path / "in.png")
     save_image(fin, img)
     rc = cli_main(["-f", fin, "-o", str(tmp_path / "out.png"), "-grayscale",

@@ -10,8 +10,8 @@ the polished Sinkhorn decimation.
 import numpy as np
 import pytest
 
-from graphlap_tpu.cli import main as cli_main
-from graphlap_tpu.config import (
+from graphlap.cli import main as cli_main
+from graphlap.config import (
     CONFIG2,
     PipelineConfig,
     calibrated_gram_coarse,
@@ -51,12 +51,9 @@ def test_tuned_config_dense_fast():
     # strip_cache routing (r4): the dense-class recipe runs through the
     # streaming model with a materialized natural-order strip — no [A; B]
     # feature permute, diagonal-offset anti-alias coarse sample, iters=6:
-    # 0.133 -> 0.120 s device at 0.011-0.028 dB across 4 seeds
-    # (cfg2_sweep.jsonl scfold_it6* rows)
+    # 0.011-0.028 dB across 4 seeds
     assert cfg.streaming and cfg.strip_cache
-    # r5: the Pallas strip emitter + fused strip sweeps are the headline
-    # (0.122 -> 0.116 s device, peak HBM 10.74 -> 8.21 GiB at cfg2;
-    # cfg2_sweep.jsonl emit_* rows)
+    # the Triton strip emitter keeps XLA's f32 distance temp on chip
     assert cfg.block_cols == 512 * 512 and cfg.use_pallas
     assert cfg.sinkhorn_iters == 6
     # coarse Sinkhorn + polish; gram decimation stays spectral-streaming-only
@@ -85,33 +82,12 @@ def test_tuned_config_streaming_fast_is_the_headline_recipe():
     assert cfg.affinity_dtype == "bfloat16" and cfg.use_pallas
     assert cfg.sinkhorn_coarse == 64 and cfg.sinkhorn_polish == 1
     assert cfg.sinkhorn_iters == 6 and cfg.gram_coarse == 64
-    # the two-sweep fused factor (0.488 -> 0.394 s device at 8 MP,
-    # 0.0035-0.0116 dB — cfg4_sweep.jsonl ffin2_* rows)
-    assert cfg.fused_finish
 
 
 def test_tuned_config_streaming_turbo_drops_polish():
     base = PipelineConfig(streaming=True, sample_cap=4096)
     cfg = tuned_config(base, MP8, "turbo")
     assert cfg.sinkhorn_polish == 0 and cfg.gram_coarse == 64
-    assert not cfg.fused_finish      # fused needs the polish sweep
-
-
-def test_tuned_config_fused_finish_never_conflicts_with_kept_knobs():
-    # an explicitly kept knob (CLI flag) must not combine with the
-    # preset's fused_finish into a config that fails validation
-    base = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.01,
-                          sample_cap=4096, streaming=True)
-    for keep, field, val in ((("sinkhorn_polish",), "sinkhorn_polish", 0),
-                             (("gram_coarse",), "gram_coarse", 1),
-                             (("sinkhorn_coarse",), "sinkhorn_coarse", 1),
-                             (("use_pallas",), "use_pallas", False)):
-        cfg = tuned_config(base.replace(**{field: val}), MP8, "fast",
-                           keep=set(keep))
-        assert not cfg.fused_finish, keep
-    # operator filter modes never build the factor -> flag stays off
-    cfg = tuned_config(base.replace(filter_name="sharpen"), MP8, "fast")
-    assert cfg.filter_mode == "matvec" and not cfg.fused_finish
 
 
 def test_tuned_config_feature_store_at_capacity_scale():
@@ -135,9 +111,9 @@ def test_affine_filter_set_matches_registry():
     # config.AFFINE_FILTERS / MATVEC_FILTERS are dependency-free copies of
     # ops.filters' registry flags (config.py cannot import ops.filters:
     # no jax there) — these pins keep them from drifting
-    from graphlap_tpu.config import AFFINE_FILTERS, MATVEC_FILTERS
-    from graphlap_tpu.ops.filters import FILTER_REGISTRY as REGISTRY
-    from graphlap_tpu.ops.filters import MATVEC_FILTERS as OPS_MATVEC
+    from graphlap.config import AFFINE_FILTERS, MATVEC_FILTERS
+    from graphlap.ops.filters import FILTER_REGISTRY as REGISTRY
+    from graphlap.ops.filters import MATVEC_FILTERS as OPS_MATVEC
     assert set(AFFINE_FILTERS) == {
         name for name, f in REGISTRY.items() if f.affine}
     assert MATVEC_FILTERS == OPS_MATVEC
@@ -147,7 +123,7 @@ def test_tuned_config_routes_affine_filters_to_matvec():
     """Rank-m AFFINE filters are ill-posed on collapsed kernel spectra
     (every accelerated cfg3 recipe measured 1.8-4.6 dB off the exact
     trajectory, polish/coarse depth irrelevant, and even a lone gram_coarse=4
-    at full f32 measured 2.5 dB — cfg3_sweep.jsonl): presets route them to
+    at full f32 measured 2.5 dB): presets route them to
     the exact polynomial matvec form at EVERY level, so parity twins compare
     like-to-like."""
     base = PipelineConfig(kernel="nlm", h=0.15, sample_cap=4096,
@@ -204,7 +180,7 @@ def test_tuned_config_bad_level():
 
 
 def test_cli_preset_fast(tmp_path, capsys):
-    from graphlap_tpu import make_test_image, save_image
+    from graphlap import make_test_image, save_image
     path = str(tmp_path / "in.png")
     save_image(path, make_test_image(64, 64))
     rc = cli_main(["-f", path, "-grayscale", "-cpu", "-kernel", "nlm",
@@ -226,7 +202,7 @@ def test_cli_preset_fast(tmp_path, capsys):
 
 
 def test_tuned_config_clamps_decimation_to_block_cols():
-    # regression (ADVICE r2): a valid non-power-of-two block width used to
+    # regression: a valid non-power-of-two block width used to
     # inherit 8 MP-calibrated factors (sc64/gc64) that fail the streaming
     # path's divisibility check. 100000 = 2^5 * 3125 -> factors cap at 32.
     base = PipelineConfig(kernel="nlm", sample_cap=4096, streaming=True,
@@ -250,16 +226,16 @@ def test_tuned_config_clamps_decimation_to_block_cols():
 
 
 def test_cli_feasibility_uses_preset_dtype(tmp_path, capsys, monkeypatch):
-    # regression (ADVICE r2): the dense-feasibility auto-switch used to run
+    # regression: the dense-feasibility auto-switch used to run
     # BEFORE the preset, sizing the strip at f32 — an image that fits only
     # in the preset's bfloat16_store strip was forced onto streaming.
-    from graphlap_tpu import make_test_image, save_image
-    from graphlap_tpu.models import pipeline as pl
+    from graphlap import make_test_image, save_image
+    from graphlap.models import pipeline as pl
     path = str(tmp_path / "in.png")
     save_image(path, make_test_image(64, 64))
     # p=123, N=4096: f32 strip 2.0 MB, bf16_store strip 1.0 MB — pin the
     # limit between the two so only the preset's dtype fits
-    monkeypatch.setattr(pl, "DENSE_STRIP_BYTES_LIMIT", 1.5e6)
+    monkeypatch.setattr(pl, "dense_strip_bytes_limit", lambda: 1.5e6)
     rc = cli_main(["-f", path, "-grayscale", "-cpu", "-kernel", "nlm",
                    "-sample", "0.03", "-eigvals", "16",
                    "-preset", "fast", "-noise", "0.1"])
@@ -276,7 +252,7 @@ def test_cli_feasibility_uses_preset_dtype(tmp_path, capsys, monkeypatch):
 
 
 def test_tuned_config_divisibility_property():
-    # property form of the ADVICE-r2 clamp: for ANY block width and image
+    # property form of the block-width clamp: for ANY block width and image
     # size, the preset must hand back a config that passes the streaming
     # path's divisibility checks and its own __post_init__ validation.
     rng = np.random.default_rng(7)

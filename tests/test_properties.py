@@ -11,7 +11,7 @@ jit per example would be too slow here (SURVEY.md §4.2).
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from graphlap_tpu.utils.sampling import SamplePlan, random_sample, \
+from graphlap.utils.sampling import SamplePlan, random_sample, \
     uniform_grid_sample
 
 
@@ -50,7 +50,7 @@ def test_random_sample_plan_invariants(h, w, p_target, seed):
 @settings(max_examples=60, deadline=None)
 @given(st.integers(1, 400), st.integers(2, 64), st.integers(0, 40))
 def test_tile_starts_cover_without_gaps(size, tile, overlap):
-    from graphlap_tpu.models.tiled import _tile_starts
+    from graphlap.models.tiled import _tile_starts
     overlap = min(overlap, tile - 1)
     starts = _tile_starts(size, tile, tile - overlap)
     if size <= tile:
@@ -77,7 +77,7 @@ def test_netpbm_roundtrip(h, w, c):
     import os
     import tempfile
 
-    from graphlap_tpu.native import read_netpbm, write_netpbm
+    from graphlap.native import read_netpbm, write_netpbm
     rng = np.random.default_rng(h * 131 + w)
     img = rng.uniform(0, 1, size=(h, w) if c == 1 else (h, w, c))
     img = img.astype(np.float32)
@@ -98,7 +98,7 @@ def test_netpbm_rejects_integer_input():
     # silently write all-white (every value >= 1.0 clips)
     import pytest
 
-    from graphlap_tpu.native import write_netpbm
+    from graphlap.native import write_netpbm
     with pytest.raises(TypeError, match="float"):
         write_netpbm("/tmp/never.pgm", np.zeros((4, 4), np.uint8))
 
@@ -111,7 +111,7 @@ def test_preset_configs_always_construct(n, cap, block_cols, level):
     # any (N, p-cap, block width) must yield a VALID config whose
     # decimations divide the active block — the whole-space form of the
     # example-based divisibility regression tests
-    from graphlap_tpu.config import PipelineConfig, tuned_config
+    from graphlap.config import PipelineConfig, tuned_config
     base = PipelineConfig(kernel="nlm", sample_cap=cap, streaming=True,
                           block_cols=block_cols)
     cfg = tuned_config(base, n, level)

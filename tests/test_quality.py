@@ -1,4 +1,4 @@
-"""Denoising QUALITY tests (VERDICT r2 item 1): the graded configs must be
+"""Denoising QUALITY tests: the graded configs must be
 good denoisers, not just parity-exact ones.
 
 The round-2 CONFIG1 (pure photometric gaussian, h=0.3) gained +0.09 dB at
@@ -11,7 +11,7 @@ config regression cannot silently return to the no-op regime.
 import numpy as np
 import pytest
 
-from graphlap_tpu import (
+from graphlap import (
     CONFIG1,
     CONFIG2,
     CONFIG3,
@@ -42,7 +42,7 @@ def test_config1_denoises_at_least_2db(noisy128):
 
 def test_config2_recipe_denoises_at_128(noisy128):
     """CONFIG2's tuned NLM bandwidth on a 128^2 stand-in (the 512^2 graded
-    row is exercised by bench.py / benchmarks/run.py on the TPU; this pins
+    row is exercised by bench.py / chip_smoke.py on the GPU; this pins
     the same recipe class CPU-side). Measured +4.5 dB at h=0.15."""
     img, noisy = noisy128
     res = filter_image(noisy, CONFIG2)
@@ -55,7 +55,7 @@ def test_config3_sharpen_enhances_faithfully():
     the output must be a REAL detail boost — gradient energy above the
     noisy input's own — without wrecking structure (SSIM floor) or
     collapsing PSNR. Measured at 1024^2: ratio 1.31, SSIM 0.867,
-    PSNR 29.07 vs input 30.49 (matrix.jsonl cfg3 r3 rows)."""
+    PSNR 29.07 vs input 30.49."""
     img = make_test_image(128, 128)
     noisy = np.clip(add_gaussian_noise(img, 0.03, seed=3), 0, 1)
     res = filter_image(noisy, CONFIG3.replace(sample_rho=0.02))
@@ -91,7 +91,7 @@ def test_denoise_tuned_rules():
     assert g.h == pytest.approx(0.2) and g.spatial_h == 8.0
     # nlm identity routes to the EXACT full-rank operator at h = 1.0 sigma
     # (round-4 rank study: +2.1-3.4 dB over the best rank-m spectral at
-    # every tested size, rank_study.jsonl)
+    # every tested size, BASELINE.md "Quality vs rank")
     n = denoise_tuned(CONFIG2, 0.1)
     assert n.filter_mode == "matvec"
     assert n.h == pytest.approx(0.1) and n.spatial_h == CONFIG2.spatial_h
@@ -110,8 +110,8 @@ def test_denoise_tuned_rules():
 
 
 def test_cli_tune_denoise(tmp_path, capsys):
-    from graphlap_tpu import save_image
-    from graphlap_tpu.cli import main as cli_main
+    from graphlap import save_image
+    from graphlap.cli import main as cli_main
 
     path = str(tmp_path / "in.png")
     save_image(path, make_test_image(64, 64))

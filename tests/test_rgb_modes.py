@@ -9,8 +9,8 @@ streaming variants without needing a separate oracle implementation.
 import numpy as np
 import pytest
 
-import graphlap_tpu as gl
-from graphlap_tpu.models.pipeline import make_plan
+import graphlap as gl
+from graphlap.models.pipeline import make_plan
 
 
 def _rgb_image(h=64, w=64, seed=0):

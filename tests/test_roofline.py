@@ -13,13 +13,13 @@ apply is not).
 import numpy as np
 import pytest
 
-import graphlap_tpu as gl
-from graphlap_tpu.models.pipeline import make_plan
-from graphlap_tpu.utils.roofline import (dense_stage_costs, roofline_report,
-                                         select_stage_costs,
-                                         streaming_stage_costs,
-                                         strip_cache_stage_costs,
-                                         xla_stage_costs)
+import graphlap as gl
+from graphlap.models.pipeline import make_plan
+from graphlap.utils.roofline import (dense_stage_costs, roofline_report,
+                                     select_stage_costs,
+                                     streaming_stage_costs,
+                                     strip_cache_stage_costs,
+                                     xla_stage_costs)
 
 PEAKS = {"bf16_matmul_tflops": 175.5, "f32_matmul_tflops": 30.6,
          "exp_f32_g_per_s": 84.4, "exp_bf16_g_per_s": 174.4,

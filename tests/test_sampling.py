@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from graphlap_tpu.utils.sampling import random_sample, uniform_grid_sample
+from graphlap.utils.sampling import random_sample, uniform_grid_sample
 
 
 @pytest.mark.parametrize("h,w,p", [(128, 128, 164), (96, 64, 61), (32, 32, 1024),
@@ -70,8 +70,8 @@ def test_random_mode_pipeline_matches_oracle_and_grid_quality():
     and random sampling lands within a fraction of a dB of the grid plan
     (at 48^2 this config smooths more than it denoises for BOTH modes —
     the quality claim here is mode-equivalence, not absolute PSNR)."""
-    import graphlap_tpu as gl
-    from graphlap_tpu.models.pipeline import make_plan
+    import graphlap as gl
+    from graphlap.models.pipeline import make_plan
 
     from .oracle import oracle_filter_image
 

@@ -8,11 +8,11 @@ import jax
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.models.pipeline import make_plan
-from graphlap_tpu.parallel.mesh import make_mesh
-from graphlap_tpu.parallel.sharded import filter_frames_sharded
+from graphlap import add_gaussian_noise, filter_image, make_test_image
+from graphlap.config import PipelineConfig
+from graphlap.models.pipeline import make_plan
+from graphlap.parallel.mesh import make_mesh
+from graphlap.parallel.sharded import filter_frames_sharded
 
 CFG = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.02, num_eigvecs=24)
 
@@ -80,7 +80,7 @@ def test_dense_production_recipe_sharded_matches_single(frames):
 def test_streaming_sharded_matches_single(frames):
     """Rows-sharded STREAMING pipeline (config 4's 'row-blocks sharded'
     contract) == single-device streaming/dense output."""
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.streaming_sharded import (
         filter_image_streaming_sharded,
     )
     cfg = CFG.replace(streaming=True, block_cols=128, sinkhorn_iters=10)
@@ -96,7 +96,7 @@ def test_streaming_batch_pallas_matches_xla(frames):
     """use_pallas=True routes the batched builder's strip matvecs through
     the vmapped Pallas kernels (interpret mode on CPU) — must match the
     XLA-scan variant and the single-image path."""
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.streaming_sharded import (
         build_streaming_sharded_batch,
     )
     import jax.numpy as jnp
@@ -115,7 +115,7 @@ def test_streaming_batch_pallas_matches_xla(frames):
 
 def test_streaming_sharded_pallas_matches_xla(frames):
     """Single-frame rows-sharded builder: Pallas matvecs == XLA scan."""
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.streaming_sharded import (
         filter_image_streaming_sharded,
     )
 
@@ -133,8 +133,8 @@ def test_matvec_mode_sharded_matches_single(frames):
     builders == the single-device matvec path. The sharded matvec reuses
     ktilde_apply / the per-frame completion, so this pins the psum
     placement of the no-eigensolve production cfg3 recipe."""
-    from graphlap_tpu.parallel.sharded import filter_frames_sharded
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.sharded import filter_frames_sharded
+    from graphlap.parallel.streaming_sharded import (
         filter_image_streaming_sharded,
     )
 
@@ -170,10 +170,9 @@ def test_chebyshev_mode_sharded_matches_single(frames):
     exp_decay here) through BOTH sharded builders == the single-device
     chebyshev path. The three-term recurrence runs a DISTINCT psum chain
     per iteration (one completion matvec per term), so this pins a
-    collective pattern none of the other mode tests cover (VERDICT r4
-    missing item 3)."""
-    from graphlap_tpu.parallel.sharded import filter_frames_sharded
-    from graphlap_tpu.parallel.streaming_sharded import (
+    collective pattern none of the other mode tests cover."""
+    from graphlap.parallel.sharded import filter_frames_sharded
+    from graphlap.parallel.streaming_sharded import (
         filter_image_streaming_sharded,
     )
 
@@ -207,7 +206,7 @@ def test_streaming_sharded_bf16_features_matches_single(frames):
     rows-sharded streaming builder == the single-device output of the
     SAME recipe — the sharding must be invariant to the feature store
     dtype (features are replicated/sliced identically either way)."""
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.streaming_sharded import (
         filter_image_streaming_sharded,
     )
     cfg = CFG.replace(streaming=True, block_cols=128, sinkhorn_iters=10,
@@ -258,7 +257,7 @@ def test_coarse_single_image_on_data_mesh(frames):
     single-image route goes through the BATCHED builder with B=1, whose
     'data'-axis specs cannot split one frame over n_data>1 — the entry
     now re-meshes the same devices rows-only instead of crashing."""
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.streaming_sharded import (
         filter_image_streaming_sharded,
     )
     ccfg = CFG.replace(streaming=True, block_cols=256, sinkhorn_coarse=2,
@@ -277,7 +276,7 @@ def test_strip_cache_sketch_sharded_matches_single(frames):
     local GEMMs + one (p, k) psum. Must match the single-device
     strip_cache path — this is what 'filter_image(..., preset_cfg, mesh)'
     executes after the preset adoption."""
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.streaming_sharded import (
         filter_image_streaming_sharded,
     )
     cfg = CFG.replace(streaming=True, strip_cache=True, block_cols=32 * 32,
@@ -296,7 +295,7 @@ def test_strip_cache_batched_sharded_matches_single(frames):
     """Batched (B=2) strip_cache through (data=2, rows=4): per-frame equal
     to the single-device strip_cache outputs (chol solver — pins the
     strip-backed ktilde/coarse/colstats independent of the sketch)."""
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.streaming_sharded import (
         build_streaming_sharded_batch,
     )
     import jax.numpy as jnp
@@ -316,7 +315,7 @@ def test_strip_cache_batched_sharded_matches_single(frames):
 def test_sketch_without_strip_cache_rejected_on_mesh(frames):
     """The recompute-only sharded builders refuse solver='sketch' loudly
     instead of silently running a different estimator."""
-    from graphlap_tpu.parallel.streaming_sharded import (
+    from graphlap.parallel.streaming_sharded import (
         build_streaming_sharded,
         build_streaming_sharded_guided,
     )

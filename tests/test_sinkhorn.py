@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.io import make_test_image
-from graphlap_tpu.ops.affinity import affinity_strip_np, extract_features_np
-from graphlap_tpu.ops.linalg import psd_pinv_np
-from graphlap_tpu.ops.sinkhorn import (
+from graphlap.config import PipelineConfig
+from graphlap.io import make_test_image
+from graphlap.ops.affinity import affinity_strip_np, extract_features_np
+from graphlap.ops.linalg import psd_pinv_np
+from graphlap.ops.sinkhorn import (
     normalize_blocks,
     normalize_blocks_np,
     nystrom_matvec_np,
@@ -24,7 +24,7 @@ TOL = 3e-3
 def blocks():
     img = make_test_image(32, 32, seed=4)
     cfg = PipelineConfig(kernel="nlm", h=0.25)
-    from graphlap_tpu.utils.sampling import uniform_grid_sample
+    from graphlap.utils.sampling import uniform_grid_sample
     plan = uniform_grid_sample(32, 32, 48)
     feats = extract_features_np(img, cfg)
     fp = feats[plan.perm]

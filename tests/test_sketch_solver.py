@@ -9,8 +9,8 @@ because its float64 oracle twin IS the chol twin (tests/oracle.py).
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image, psnr
-from graphlap_tpu.config import CONFIG2, PipelineConfig
+from graphlap import add_gaussian_noise, filter_image, make_test_image, psnr
+from graphlap.config import CONFIG2, PipelineConfig
 
 from .oracle import oracle_filter_image
 
@@ -30,7 +30,7 @@ def test_sketch_factor_matches_chol():
     angle (kernel spectra decay fast; 2 power iterations suffice)."""
     import jax.numpy as jnp
 
-    from graphlap_tpu.ops.nystrom import (
+    from graphlap.ops.nystrom import (
         nystrom_chol_factor,
         nystrom_sketch_factor,
     )

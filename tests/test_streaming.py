@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.models.pipeline import make_plan
+from graphlap import add_gaussian_noise, filter_image, make_test_image
+from graphlap.config import PipelineConfig
+from graphlap.models.pipeline import make_plan
 
 
 @pytest.fixture(scope="module")
@@ -54,8 +54,7 @@ def test_streaming_single_block(noisy):
 
 
 def test_streaming_pallas_matvecs_match(noisy):
-    """Fused Pallas K-matvec + gram kernels == XLA scan operators
-    (interpret)."""
+    """Fused Pallas K-matvec kernels == XLA scan operators (interpret)."""
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
                          num_eigvecs=24, streaming=True, block_cols=1024)
     plan = make_plan(noisy, cfg)
@@ -66,7 +65,7 @@ def test_streaming_pallas_matvecs_match(noisy):
 
 
 def test_streaming_pallas_coarse_gram_matches(noisy):
-    """Pallas emitter path under gram_coarse decimation == XLA path."""
+    """Pallas matvec path under gram_coarse decimation == XLA path."""
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
                          num_eigvecs=24, streaming=True, block_cols=1024,
                          sinkhorn_coarse=2, gram_coarse=2)
@@ -79,10 +78,10 @@ def test_streaming_pallas_coarse_gram_matches(noisy):
 
 def test_streaming_compute_basis_matches_dense(noisy):
     """-save_basis on a streaming config must go through the strip-free
-    path (ADVICE round 1: it silently materialized the dense strip) and
+    path (it silently materialized the dense strip) and
     produce a basis whose filter replays match the dense basis."""
-    from graphlap_tpu.models.pipeline import compute_basis
-    from graphlap_tpu.utils.checkpoint import SavedBasis, filter_with_basis
+    from graphlap.models.pipeline import compute_basis
+    from graphlap.utils.checkpoint import SavedBasis, filter_with_basis
 
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
                          num_eigvecs=16, sinkhorn_iters=10)
@@ -130,8 +129,8 @@ def test_streaming_pallas_odd_size():
 def test_streaming_staged_matches_fused(noisy):
     """The staged (normalize/eigensolve/filter) split produces the SAME
     pixels as the fused streaming jit, and records the graded eigensolve
-    wall (VERDICT r2 item 3: streaming rows must carry per-stage walls)."""
-    from graphlap_tpu import filter_image_staged
+    wall (streaming rows must carry per-stage walls)."""
+    from graphlap import filter_image_staged
 
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
                          num_eigvecs=24, sinkhorn_iters=8,
@@ -149,7 +148,7 @@ def test_streaming_staged_matches_fused(noisy):
 def test_streaming_staged_coarse_pallas(noisy):
     """Staged split under the production recipe operators (bf16 tiles +
     Pallas interpret + coarse Sinkhorn/gram + polish)."""
-    from graphlap_tpu import filter_image_staged
+    from graphlap import filter_image_staged
 
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
                          num_eigvecs=16, sinkhorn_iters=4,
@@ -164,7 +163,7 @@ def test_streaming_staged_coarse_pallas(noisy):
 
 def test_streaming_staged_rgb(noisy):
     """Per-channel RGB through the staged streaming split (the cfg3 row)."""
-    from graphlap_tpu import filter_image_staged
+    from graphlap import filter_image_staged
 
     rgb = np.stack([noisy, 1 - noisy, noisy ** 2], axis=-1)
     cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.02,
@@ -176,138 +175,6 @@ def test_streaming_staged_rgb(noisy):
     # 5e-5: the stage boundaries change XLA's fusion/reassociation (one
     # pixel in 12k measured 1.8e-5 off at f32)
     np.testing.assert_allclose(staged.image, fused.image, atol=5e-5)
-
-
-def test_fused_finish_matches_schedule(noisy):
-    """cfg.fused_finish (two Pallas sweeps + the decimated post-polish
-    spectrum) == the same schedule composed from the XLA operators,
-    compared through the FILTER OUTPUT (the factor's basis columns carry
-    eigh sign/rotation indeterminacy; the identity-filter projection is
-    the invariant)."""
-    import jax.numpy as jnp
-
-    from graphlap_tpu.models import streaming as ms
-    from graphlap_tpu.ops import streaming as st
-    from graphlap_tpu.ops.nystrom import _LIVE_NORM2
-
-    cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
-                         num_eigvecs=16, sinkhorn_iters=4,
-                         streaming=True, block_cols=1024, use_pallas=True,
-                         sinkhorn_coarse=4, sinkhorn_polish=1,
-                         gram_coarse=4, fused_finish=True)
-    plan = make_plan(noisy, cfg)
-    idx_a = jnp.asarray(plan.idx_a)
-    img2d = jnp.asarray(noisy)
-    h, w = noisy.shape
-
-    ctx = ms._strip_ctx(img2d, idx_a, cfg)
-    assert ms._fused_finish_ok(ctx, cfg)
-    fac_f = ms._factor_streaming_fused(img2d, ctx, cfg)
-
-    # the same schedule from the unfused XLA operators
-    s_a_pre, t_r, t_c = ms._coarse_sinkhorn_state(ctx, cfg)
-    kbt = st.rmatvec2(ctx.feats_a, ctx.feats_pad,
-                      jnp.stack([t_r, t_c], axis=1), ctx.b_mask,
-                      ctx.block, ctx.dtype)
-    s_pre = ctx.b_mask / jnp.sqrt(jnp.maximum(kbt[:, 0] * kbt[:, 1], 1e-30))
-    u = st.matvec(ctx.feats_a, ctx.feats_pad, s_pre, ctx.ones_p,
-                  jnp.ones_like(s_pre), ctx.block, ctx.dtype)
-    top = ctx.kaa @ s_a_pre + u
-    t_vec = s_a_pre + ctx.kaa_solve(u)
-    s_a = jnp.sqrt(s_a_pre / jnp.maximum(top, 1e-30))
-    # post-polish scales at the gram-sample columns via the decimated
-    # rmatvec (the parity-exact spectrum schedule)
-    kg = cfg.gram_coarse
-    jidx = jnp.asarray(ms.gram_sample_idx(ctx.n_pad, kg,
-                                          cfg.gram_jitter_seed))
-    ks_j = st.rmatvec(ctx.feats_a, jnp.take(ctx.feats_pad, jidx, axis=0),
-                      t_vec, ctx.ones_p,
-                      jnp.ones(jidx.shape[0], jnp.float32),
-                      ctx.block // kg, ctx.dtype)
-    s_pre_j = jnp.take(s_pre, jidx)
-    s_post_j = jnp.where(s_pre_j > 0.0,
-                         jnp.sqrt(s_pre_j / jnp.maximum(ks_j, 1e-30)), 0.0)
-    waa = ctx.kaa * (s_a[:, None] * s_a[None, :])
-    cross = ms._stream_cross(ctx, cfg, s_a, s_pre, s_sampled=s_post_j)
-    vals_m, basis0 = ms._solve_pxp(cfg, waa, cross)
-    ks = st.rmatvec(ctx.feats_a, ctx.feats_pad, t_vec, ctx.ones_p,
-                    jnp.ones(ctx.n_pad, jnp.float32), ctx.block, ctx.dtype)
-    s_new = jnp.sqrt(s_pre / jnp.maximum(ks, 1e-30)) * ctx.b_mask
-    y_pad = jnp.zeros(ctx.n_pad, jnp.float32).at[:ctx.n].set(
-        img2d.astype(jnp.float32).ravel())
-    norms_b, coeffs_b, v_b = st.rmatmat_colstats_v(
-        ctx.feats_a, ctx.feats_pad, basis0, y_pad, s_a, s_new,
-        ctx.block, ctx.dtype)
-    v_a = waa @ basis0
-    dnorm = jnp.sum(v_a * v_a, axis=0) + norms_b
-    live = dnorm > _LIVE_NORM2
-    scale = jnp.where(live, 1.0 / jnp.sqrt(jnp.where(live, dnorm, 1.0)), 0.0)
-    coeffs = scale * (v_a.T @ jnp.take(y_pad, idx_a) + coeffs_b)
-    fac_x = ms.StreamFactor(vals=vals_m, basis0=basis0, v_a=v_a, scale=scale,
-                            coeffs=coeffs, s_a=s_a, s_b_cols=s_new,
-                            feats_a=ctx.feats_a, feats_pad=ctx.feats_pad,
-                            y_pad=y_pad, v_b=v_b, n=ctx.n, block=ctx.block)
-
-    # scale vectors are sign/rotation-free: exact agreement expected
-    np.testing.assert_allclose(np.asarray(fac_f.s_a), np.asarray(fac_x.s_a),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(fac_f.s_b_cols),
-                               np.asarray(fac_x.s_b_cols), atol=1e-5)
-    z_f, _ = ms._apply_factor(fac_f, idx_a, cfg, h, w)
-    z_x, _ = ms._apply_factor(fac_x, idx_a, cfg, h, w)
-    np.testing.assert_allclose(np.asarray(z_f), np.asarray(z_x), atol=2e-3)
-
-
-def test_fused_finish_quality_class(noisy):
-    """End-to-end fused_finish output stays in the unfused recipe's
-    quality class (the exact parity bound is measured on-chip at the
-    in-regime 8 MP shape — cfg4_sweep.jsonl ffin_* rows)."""
-    from graphlap_tpu.metrics import psnr
-
-    base = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
-                          num_eigvecs=16, sinkhorn_iters=4,
-                          streaming=True, block_cols=1024, use_pallas=True,
-                          affinity_dtype="bfloat16", sinkhorn_coarse=4,
-                          sinkhorn_polish=1, gram_coarse=4)
-    plan = make_plan(noisy, base)
-    r_u = filter_image(noisy, base, plan=plan)
-    r_f = filter_image(noisy, base.replace(fused_finish=True), plan=plan)
-    clean = make_test_image(64, 64, seed=11)
-    # 64^2/sc4 is far OUTSIDE the calibrated decimation regime
-    # (N/k >= 32p fails by ~30x), where both schedules carry dB-scale
-    # decimation error; the bound only guards against structural breakage
-    # (multi-dB divergence). In-regime parity: ffin_* rows at 8 MP.
-    assert abs(psnr(clean, r_f.image) - psnr(clean, r_u.image)) < 1.5
-
-
-def test_fused_finish_config_validation():
-    """Static-knob requirements refuse loudly at config time."""
-    with pytest.raises(ValueError, match="streaming"):
-        PipelineConfig(fused_finish=True, use_pallas=True)
-    with pytest.raises(ValueError, match="sinkhorn_polish"):
-        PipelineConfig(fused_finish=True, streaming=True, use_pallas=True,
-                       sinkhorn_coarse=4, sinkhorn_polish=0)
-    with pytest.raises(ValueError, match="gram_coarse"):
-        PipelineConfig(fused_finish=True, streaming=True, use_pallas=True,
-                       sinkhorn_coarse=4, sinkhorn_polish=1, gram_coarse=1)
-
-
-def test_fused_finish_shape_fallback(noisy):
-    """m > M_PAD fails the shape gate -> the unfused sweeps run (no crash,
-    same recipe semantics)."""
-    from graphlap_tpu.models import streaming as ms
-    import jax.numpy as jnp
-
-    cfg = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.2,
-                         num_eigvecs=130, sinkhorn_iters=4,
-                         streaming=True, block_cols=1024, use_pallas=True,
-                         sinkhorn_coarse=4, sinkhorn_polish=1,
-                         gram_coarse=4, fused_finish=True)
-    plan = make_plan(noisy, cfg)
-    ctx = ms._strip_ctx(jnp.asarray(noisy), jnp.asarray(plan.idx_a), cfg)
-    assert not ms._fused_finish_ok(ctx, cfg)
-    r = filter_image(noisy, cfg, plan=plan)      # falls back, still runs
-    assert np.isfinite(r.image).all()
 
 
 # ---------------------------------------------------------------------------
@@ -370,10 +237,6 @@ def test_strip_cache_sketch_matches_dense_sketch(noisy):
 def test_strip_cache_validation():
     with pytest.raises(ValueError, match="strip_cache"):
         PipelineConfig(strip_cache=True)                   # needs streaming
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        PipelineConfig(streaming=True, strip_cache=True, use_pallas=True,
-                       sinkhorn_coarse=4, sinkhorn_polish=1, gram_coarse=4,
-                       fused_finish=True)
     with pytest.raises(ValueError, match="sketch"):
         PipelineConfig(streaming=True, solver="sketch")    # needs the cache
 
@@ -382,7 +245,7 @@ def test_strip_cache_bf16_store(noisy):
     """bfloat16_store semantics carry over: f32 distances/exp, strip
     STORED bf16 — output stays within the measured store-rounding class
     of the f32 run."""
-    import graphlap_tpu as gl
+    import graphlap as gl
     base = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03,
                           num_eigvecs=24, sinkhorn_iters=10,
                           streaming=True, strip_cache=True, block_cols=640)

@@ -19,14 +19,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphlap_tpu import (CONFIG1, CONFIG2, add_gaussian_noise,
-                          make_test_image, sure_risk, tune_h_sure)
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.models.pipeline import _dense_wapply, make_plan
-from graphlap_tpu.ops.affinity import affinity_blocks
-from graphlap_tpu.ops.filters import apply_operator_filter
-from graphlap_tpu.ops.sinkhorn import normalize_blocks
-from graphlap_tpu.tune import _sure_parts, operator_surrogate
+from graphlap import (CONFIG1, CONFIG2, add_gaussian_noise,
+                      make_test_image, sure_risk, tune_h_sure)
+from graphlap.config import PipelineConfig
+from graphlap.models.pipeline import _dense_wapply, make_plan
+from graphlap.ops.affinity import affinity_blocks
+from graphlap.ops.filters import apply_operator_filter
+from graphlap.ops.sinkhorn import normalize_blocks
+from graphlap.tune import _sure_parts, operator_surrogate
 
 
 @pytest.fixture(scope="module")
@@ -177,8 +177,8 @@ def test_operator_surrogate_mapping():
 
 
 def test_cli_tune_sure(tmp_path, capsys):
-    from graphlap_tpu import save_image
-    from graphlap_tpu.cli import main as cli_main
+    from graphlap import save_image
+    from graphlap.cli import main as cli_main
     path = str(tmp_path / "in.png")
     save_image(path, make_test_image(64, 64))
     out = str(tmp_path / "out.png")
@@ -201,12 +201,12 @@ def test_cli_tune_sure_dense_infeasible_auto_streams(tmp_path, capsys,
     # regression: -tune_sure used to run BEFORE the dense-feasibility
     # fallback, so a dense-infeasible image crashed with the library's
     # raw strip-size ValueError instead of auto-enabling streaming
-    from graphlap_tpu import save_image
-    from graphlap_tpu.cli import main as cli_main
-    from graphlap_tpu.models import pipeline as pl
+    from graphlap import save_image
+    from graphlap.cli import main as cli_main
+    from graphlap.models import pipeline as pl
     path = str(tmp_path / "in.png")
     save_image(path, make_test_image(64, 64))
-    monkeypatch.setattr(pl, "DENSE_STRIP_BYTES_LIMIT", 1e5)
+    monkeypatch.setattr(pl, "dense_strip_bytes_limit", lambda: 1e5)
     rc = cli_main(["-f", path, "-grayscale", "-cpu", "-sample", "0.02",
                    "-eigvals", "24", "-noise", "0.1", "-tune_sure"])
     assert rc == 0

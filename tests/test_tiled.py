@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from graphlap_tpu import (add_gaussian_noise, filter_image,
-                          filter_image_tiled, make_test_image, psnr)
-from graphlap_tpu.config import PipelineConfig
+from graphlap import (add_gaussian_noise, filter_image,
+                      filter_image_tiled, make_test_image, psnr)
+from graphlap.config import PipelineConfig
 
 CFG = PipelineConfig(kernel="gaussian", h=0.2, spatial_h=8.0,
                      sample_rho=0.03, num_eigvecs=16, sinkhorn_iters=8)
@@ -21,8 +21,8 @@ def test_tiled_partition_of_unity(monkeypatch):
     # blend isolation: with a passthrough "filter", the tiled output must
     # reproduce the input EXACTLY — the Hann weights are normalized to a
     # per-pixel partition of unity, so any leak/seam shows immediately
-    from graphlap_tpu.models import tiled as tl
-    from graphlap_tpu.models.pipeline import FilterResult
+    from graphlap.models import tiled as tl
+    from graphlap.models.pipeline import FilterResult
 
     monkeypatch.setattr(
         tl, "filter_image",
@@ -75,8 +75,8 @@ def test_tiled_streaming_and_validation():
 
 
 def test_cli_tile_flag(tmp_path, capsys):
-    from graphlap_tpu import save_image
-    from graphlap_tpu.cli import main as cli_main
+    from graphlap import save_image
+    from graphlap.cli import main as cli_main
     path = str(tmp_path / "in.png")
     save_image(path, make_test_image(112, 112))
     rc = cli_main(["-f", path, "-o", str(tmp_path / "out.png"),
@@ -89,7 +89,7 @@ def test_cli_tile_flag(tmp_path, capsys):
 
 def test_tiled_with_mesh_matches_unsharded():
     # -tile composes with the mesh route: each tile runs rows-sharded
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap.parallel.mesh import make_mesh
     clean, noisy = _noisy(160)
     scfg = CFG.replace(streaming=True, block_cols=1024)
     ref = filter_image_tiled(noisy, scfg, tile=96, overlap=32)

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from graphlap_tpu import add_gaussian_noise, filter_image, make_test_image
-from graphlap_tpu.config import PipelineConfig
-from graphlap_tpu.models.pipeline import make_plan
-from graphlap_tpu.models.video import filter_video
-from graphlap_tpu.parallel.mesh import make_mesh
+from graphlap import add_gaussian_noise, filter_image, make_test_image
+from graphlap.config import PipelineConfig
+from graphlap.models.pipeline import make_plan
+from graphlap.models.video import filter_video
+from graphlap.parallel.mesh import make_mesh
 
 CFG = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.03, num_eigvecs=16,
                      sinkhorn_iters=10)
@@ -124,7 +124,7 @@ def test_video_streaming_batch_filters(filter_name, param):
 # per-frame bases while the factor stage runs k x less often.
 # ---------------------------------------------------------------------------
 
-from graphlap_tpu import CONFIG1, psnr
+from graphlap import CONFIG1, psnr
 
 
 def _static_scene(b=8, side=64, sigma=0.1, seed=7):
@@ -182,7 +182,7 @@ def test_temporal_guide_rejects_mesh_and_chunking():
     # the guided path — a multi-chip request ran single-device instead.
     # A mesh is supported on the STREAMING guided path (test below);
     # dense-guided + mesh and frames_per_step still refuse loudly.
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap.parallel.mesh import make_mesh
     _, frames = _static_scene(b=4)
     with pytest.raises(ValueError, match="streaming"):
         filter_video(frames, CONFIG1, mesh=make_mesh(), temporal_guide=4)
@@ -195,7 +195,7 @@ def test_temporal_guide_sharded_matches_single_device():
     (one factor from the group mean, per-frame apply), for the spectral,
     operator-matvec, and coarse+polish recipes, incl. a non-divisible
     group count and color frames."""
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap.parallel.mesh import make_mesh
     mesh = make_mesh(n_rows=4, n_data=2)
     scfg = CONFIG1.replace(streaming=True, block_cols=1024)
     clean, frames = _static_scene(b=7)
@@ -248,7 +248,7 @@ def test_temporal_guide_motion_boundary():
 
 
 def test_temporal_guide_sharded_color():
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap.parallel.mesh import make_mesh
     mesh = make_mesh(n_rows=4, n_data=2)
     scfg = CONFIG1.replace(streaming=True, block_cols=1024)
     _, frames = _static_scene(b=4)
@@ -283,7 +283,7 @@ def test_register_guide_recovers_motion_loss():
 
 
 def test_register_guide_estimator_and_static_noop():
-    from graphlap_tpu.utils.register import estimate_shift, shift_image
+    from graphlap.utils.register import estimate_shift, shift_image
     base = np.asarray(make_test_image(96, 96), np.float64)
     moved = np.roll(np.roll(base, -4, axis=0), 7, axis=1)
     dy, dx = estimate_shift(base, moved)
@@ -305,8 +305,8 @@ def test_register_device_estimator_matches_host():
     of a pixel on a rolled image — the same bound the host estimator is
     held to against ground truth."""
     import jax.numpy as jnp
-    from graphlap_tpu.utils.register import (_estimate_shifts_dev,
-                                             estimate_shift)
+    from graphlap.utils.register import (_estimate_shifts_dev,
+                                         estimate_shift)
     base = np.asarray(make_test_image(96, 96), np.float32)
     moved = np.roll(np.roll(base, -4, axis=0), 7, axis=1)
     dev = np.asarray(_estimate_shifts_dev(jnp.stack([base, moved])))
@@ -322,7 +322,7 @@ def test_shift_image_dev_matches_host_twin():
     boundary matches), ~1e-2 on smooth content at fractional shifts,
     and a true no-op at zero shift."""
     import jax
-    from graphlap_tpu.utils.register import shift_image, shift_image_dev
+    from graphlap.utils.register import shift_image, shift_image_dev
     img = np.asarray(make_test_image(48, 40), np.float32)
     jsh = jax.jit(shift_image_dev)
     # zero shift: bit-exact passthrough (taps collapse to (0,1,0,0))
@@ -359,7 +359,7 @@ def test_shift_image_dev_matches_host_twin():
 def test_register_guide_composes_with_mesh():
     # registration is host-side preprocessing, so it must compose with
     # the rows-sharded guided builder unchanged
-    from graphlap_tpu.parallel.mesh import make_mesh
+    from graphlap.parallel.mesh import make_mesh
     scfg = CONFIG1.replace(streaming=True, block_cols=1024)
     _, frames = _static_scene(b=4)
     z1, _ = filter_video(frames, scfg, temporal_guide=4, register_guide=True)
@@ -370,7 +370,7 @@ def test_register_guide_composes_with_mesh():
 
 def _pan_scene(v=1.0, b=8, side=64, sigma=0.02, seed=3):
     """Camera pan at ``v`` px/frame: integer/subpixel crops of one
-    oversized scene (same construction as benchmarks/run.py row5tr)."""
+    oversized scene."""
     pad = int(np.ceil(v * b)) + 2
     base = make_test_image(side + pad, side + pad, seed=1)
     rng = np.random.default_rng(seed)
@@ -387,8 +387,8 @@ def test_route_temporal_guide_measured_boundaries():
     get the largest registered groups, ~1 px/frame pans route to k=2
     registered (the 64^2 study optimum AND the conservative call at the
     4K pan row), and fast motion declines guided reuse entirely."""
-    from graphlap_tpu.models.video import (estimate_motion,
-                                           route_temporal_guide)
+    from graphlap.models.video import (estimate_motion,
+                                       route_temporal_guide)
 
     _, static = _static_scene(b=8)
     assert estimate_motion(static) < 0.2
